@@ -1,0 +1,103 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each ``gymca_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, in ``gymca_torch/build/``
+(listed in ``.gitignore``).  The library's file name carries a hash of the
+source and the flags, so an edited source builds anew.  A missing ``nvcc``,
+a missing source or a failed build raises.
+
+The kernels build from the sources beside this file and into the package
+directory, so the port runs from a checkout of the repository; an installed
+copy carries no ``csrc/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "Built", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, into the log
+)
+
+
+@dataclasses.dataclass
+class Built:
+    name: str
+    path: Path
+    seconds: Optional[float]  # None when an earlier build was reused
+    log: str  # nvcc's output, with the -Xptxas -v report
+
+    def ptxas_report(self):
+        """The ``-Xptxas -v`` lines: registers, barriers, shared memory,
+        stack and spills of each kernel instance."""
+        return [ln.strip() for ln in self.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: building gymca_torch's CUDA kernels "
+                           "needs the CUDA toolkit (set CUDA_HOME)")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.is_file():
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return str(nvcc)
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
+    """Build the named sources (default: every ``csrc/*.cu``) and return
+    what was built or reused."""
+    srcs = ([CSRC_DIR / f"{n}.cu" for n in names] if names is not None
+            else sorted(CSRC_DIR.glob("*.cu")))
+    missing = [str(s) for s in srcs if not s.is_file()]
+    if missing or not srcs:
+        raise RuntimeError(f"kernel sources not found in {CSRC_DIR}: {missing or '*.cu'}; "
+                           "gymca_torch builds its kernels from a checkout of the repository")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done: Dict[str, Built] = {}
+    for src in srcs:
+        target = _target(src)
+        log_path = target.with_suffix(".log")
+        if target.is_file() and log_path.is_file():
+            done[src.stem] = Built(src.stem, target, None, log_path.read_text())
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA build of {src.name} failed: nvcc exited "
+                               f"{proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, target)  # atomic: concurrent builds agree
+        log_path.write_text(proc.stdout)
+        done[src.stem] = Built(src.stem, target, time.perf_counter() - t0, proc.stdout)
+    return done
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    return ctypes.CDLL(str(build([name])[name].path))

@@ -1,0 +1,170 @@
+"""``jax.random``'s key chain in torch, bit for bit.
+
+The env draws randomness where the JAX package does (the reset in
+``BulldozerCore.initial_state`` and each step's gust roll), and those draws
+must match the reference exactly.  This module reproduces jax 0.9.0's
+``threefry2x32`` PRNG with ``jax_threefry_partitionable=True`` and x64 off
+(``jax/_src/prng.py``: ``threefry_split``, ``threefry_fold_in``,
+``_threefry_random_bits_partitionable``; ``jax/_src/random.py``: ``_uniform``,
+``_randint``, ``choice`` with ``p``).
+
+Keys are ``(..., 2)`` tensors of key data: the two uint32 words of a jax key,
+held in int64 (torch's uint32 arithmetic is incomplete on both CPU and CUDA)
+and wrapped to 32 bits explicitly after every operation that can carry.
+Every function is vectorised over the leading key dimensions.
+
+Inputs that no reference draw has to reproduce (a policy's actions, test
+noise) come from a ``torch.Generator`` instead: this chain costs hundreds of
+small kernels per call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gymca_torch.config import resolve_device
+
+__all__ = [
+    "key",
+    "threefry2x32",
+    "split",
+    "fold_in",
+    "random_bits",
+    "uniform",
+    "randint",
+    "exponential",
+    "choice",
+]
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """Key data of ``jax.random.key(seed)`` for a seed in ``[0, 2**32)``, on
+    ``device`` (the card unless the caller names another)."""
+    if not 0 <= int(seed) <= _M32:
+        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
+    return torch.tensor([0, int(seed)], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash of counters ``(x1, x2)`` under key ``(k1, k2)``;
+    all four broadcast together (``prng.py::_threefry2x32_lowering``)."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = x1 ^ _rotl(x2, r)
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def _hash_counters(keys: torch.Tensor, shape: Sequence[int]):
+    """Threefry of the counters ``0 .. prod(shape)-1`` (as the 64-bit iota
+    ``prng.py::iota_2x32_shape`` splits into hi/lo words) under every key."""
+    shape = tuple(int(d) for d in shape)
+    size = math.prod(shape)
+    if size >= 2**32:
+        raise ValueError("more than 2**32 draws per key")
+    lo = torch.arange(size, dtype=torch.int64, device=keys.device).reshape(shape)
+    lead = keys.shape[:-1] + (1,) * len(shape)
+    k1 = keys[..., 0].reshape(lead)
+    k2 = keys[..., 1].reshape(lead)
+    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)``."""
+    b1, b2 = _hash_counters(keys, (num,))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in`` with a scalar ``data`` in ``[0, 2**32)``."""
+    d = int(data) & _M32
+    b1, b2 = threefry2x32(
+        keys[..., 0], keys[..., 1],
+        torch.zeros_like(keys[..., 0]), torch.full_like(keys[..., 0], d),
+    )
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element: ``(..., *shape)`` int64 in ``[0, 2**32)``
+    (``prng.py::_threefry_random_bits_partitionable``, bit width 32)."""
+    b1, b2 = _hash_counters(keys, shape)
+    return b1 ^ b2
+
+
+def uniform(keys: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniform in ``[minval, maxval)`` (``random.py::_uniform``)."""
+    bits = random_bits(keys, shape)
+    float_bits = (bits >> 9) | 0x3F800000  # mantissa bits under exponent 0
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    # Bounds as float32 values held in Python floats: no host-to-device copy.
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(minval))
+    if (lo, scale) == (0.0, 1.0):
+        return floats
+    # XLA fuses floats * scale + lo into one multiply-add; the float64 product
+    # of two float32 values is exact, so one float64 add and the cast to
+    # float32 round as that fused operation does (but for double-rounding
+    # ties).
+    return torch.clamp((floats.double() * scale + lo).float(), min=lo)
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b`` modulo 2**32 for operands below 2**32, with no int64
+    overflow on the way."""
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & _M32
+
+
+def randint(keys: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` (``random.py::_randint``)."""
+    if not -(2**31) <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"need int32 bounds with minval < maxval, got "
+                         f"[{minval}, {maxval})")
+    pair = split(keys)
+    higher = random_bits(pair[..., 0, :], shape)
+    lower = random_bits(pair[..., 1, :], shape)
+    span = maxval - minval
+    multiplier = 2**16 % span
+    multiplier = ((multiplier * multiplier) & _M32) % span  # uint32 product
+    offset = (_mul32(higher % span, multiplier) + lower % span) & _M32
+    return (minval + offset % span).to(torch.int32)
+
+
+def exponential(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 Exp(1) draws (``random.py::_exponential``)."""
+    return -torch.log1p(-uniform(keys, shape))
+
+
+def choice(keys: torch.Tensor, n: int, shape: Sequence[int],
+           p: Sequence[float]) -> torch.Tensor:
+    """Indices in ``[0, n)`` drawn with replacement with probabilities ``p``
+    (``random.py::choice`` with ``p`` and ``replace=True``): a float32
+    cumulative sum, ``p_cuml[-1] * (1 - u)``, then a left ``searchsorted``.
+    Returns int64 indices of shape ``(..., *shape)``."""
+    p = torch.as_tensor(p, dtype=torch.float32)
+    if p.shape != (n,):
+        raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
+    p_cuml = torch.cumsum(p, 0).to(keys.device)  # host cumsum: sequential
+    r = p_cuml[-1] * (1.0 - uniform(keys, shape))
+    return torch.searchsorted(p_cuml, r.reshape(-1)).reshape(r.shape)

@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX, no gymca_tpu, no flax or optax anywhere in
+``gymca_torch/`` or ``chip_smoke.py``, and gymnasium only in the on-demand
+adapter module ``gymca_torch/gym_env.py``.
+
+This process already imported jax at start-up, so ``sys.modules`` cannot
+show what the port imports: every source is parsed with ``ast`` instead.
+"""
+
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax")
+GYM_ADAPTER = ROOT / "gymca_torch" / "gym_env.py"
+
+
+def imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_sources_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_SOURCES}
+    assert "gymca_torch/envs/bulldozer.py" in names
+    assert "gymca_torch/ops/windy_kernel.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_reference_imports(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+        if top == "gymnasium":
+            assert path == GYM_ADAPTER, f"{path.name} imports gymnasium"
+
+
+def test_ast_scan_catches_forbidden_imports(tmp_path):
+    src = tmp_path / "bad.py"
+    src.write_text("import os\nfrom jax import numpy\n"
+                   "def f():\n    import gymca_tpu.ops\n")
+    assert {"jax", "gymca_tpu.ops"} <= set(imported_modules(src))
+
+
+@pytest.mark.parametrize("module", [
+    "gymca_torch.config", "gymca_torch.rng", "gymca_torch.core.spaces",
+    "gymca_torch.core.operator", "gymca_torch.core.env", "gymca_torch.ops.stencil",
+    "gymca_torch.ops.windy", "gymca_torch.ops.move_modify", "gymca_torch.ops.repeat_ca",
+    "gymca_torch.ops.windy_kernel", "gymca_torch.envs.bulldozer", "gymca_torch.interop",
+    "gymca_torch._build", "gymca_torch.gym_env",
+])
+def test_modules_import_without_a_card(module):
+    importlib.import_module(module)
+
+
+def test_gym_adapters_load_on_demand():
+    from gymca_torch.core import env
+    from gymca_torch.envs import bulldozer
+    from gymca_torch.gym_env import ForestFireBulldozerEnv, GymCAEnv
+
+    assert env.GymCAEnv is GymCAEnv
+    assert bulldozer.ForestFireBulldozerEnv is ForestFireBulldozerEnv
+    with pytest.raises(AttributeError):
+        env.NoSuchThing  # noqa: B018

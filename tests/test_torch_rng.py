@@ -1,0 +1,161 @@
+"""``gymca_torch.rng`` and the spec samplers against ``jax.random``.
+
+Key data is made with numpy from a seed and handed to both packages; every
+draw must be equal bit for bit (tolerance 0), except ``exponential``, whose
+``log1p`` rounds differently from XLA's by at most one unit in the last
+place (ROADMAP.md §3).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gymca_torch import rng
+from gymca_torch.core import spaces as tspaces
+from gymca_tpu.core import spaces as jspaces
+
+
+def key_data(seed, n):
+    kd = np.random.default_rng(seed).integers(0, 2**32, (n, 2), dtype=np.uint64)
+    return kd.astype(np.uint32)
+
+
+def jax_keys(kd):
+    return jax.random.wrap_key_data(jnp.asarray(kd))
+
+
+def torch_keys(kd):
+    return torch.as_tensor(kd.astype(np.int64))
+
+
+def jdata(keys):
+    return np.asarray(jax.random.key_data(keys)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 + 7, 2**32 - 1])
+def test_key_matches_jax_key(seed):
+    np.testing.assert_array_equal(rng.key(seed, device="cpu").numpy(),
+                                  jdata(jax.random.key(seed)))
+
+
+def test_key_rejects_out_of_range_seed():
+    with pytest.raises(ValueError):
+        rng.key(-1, device="cpu")
+    with pytest.raises(ValueError):
+        rng.key(2**32, device="cpu")
+
+
+@pytest.mark.parametrize("num", [1, 2, 6])
+def test_split_matches_jax(num):
+    kd = key_data(1, 5)
+    want = jdata(jax.vmap(lambda k: jax.random.split(k, num))(jax_keys(kd)))
+    np.testing.assert_array_equal(rng.split(torch_keys(kd), num).numpy(), want)
+
+
+def test_split_of_one_key_and_of_nested_batches():
+    kd = key_data(2, 6)
+    want = jdata(jax.random.split(jax_keys(kd[:1])[0], 3))
+    np.testing.assert_array_equal(rng.split(torch_keys(kd[0]), 3).numpy(), want)
+    nested = torch_keys(kd).reshape(2, 3, 2)
+    np.testing.assert_array_equal(rng.split(nested, 2).reshape(6, 2, 2).numpy(),
+                                  rng.split(torch_keys(kd), 2).numpy())
+
+
+@pytest.mark.parametrize("data", [0, 7, 2**31 + 5])
+def test_fold_in_matches_jax(data):
+    kd = key_data(3, 4)
+    want = jdata(jax.vmap(lambda k: jax.random.fold_in(k, data))(jax_keys(kd)))
+    np.testing.assert_array_equal(rng.fold_in(torch_keys(kd), data).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(), (3, 3), (4, 5, 6)])
+def test_random_bits_match_jax(shape):
+    kd = key_data(4, 3)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.bits(k, shape, dtype=jnp.uint32))(jax_keys(kd)))
+    np.testing.assert_array_equal(rng.random_bits(torch_keys(kd), shape).numpy(),
+                                  want.astype(np.int64))
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((3, 3), 0.0, 1.0), ((), 0.0, 1.0), ((64, 32), 0.0, 1.0),
+    ((500,), -2.5, 3.7), ((500,), 5.0, 1e6),
+])
+def test_uniform_matches_jax(shape, lo, hi):
+    kd = key_data(5, 8)
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(
+        k, shape, dtype=jnp.float32, minval=lo, maxval=hi))(jax_keys(kd)))
+    got = rng.uniform(torch_keys(kd), shape, lo, hi).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 21), (0, 9), (0, 2), (-5, 70000), (0, 2**31 - 1)])
+def test_randint_matches_jax(lo, hi):
+    kd = key_data(6, 6)
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, (7, 3), lo, hi, dtype=jnp.int32))(jax_keys(kd)))
+    got = rng.randint(torch_keys(kd), (7, 3), lo, hi)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_rejects_empty_range():
+    with pytest.raises(ValueError):
+        rng.randint(torch_keys(key_data(0, 1)), (), 3, 3)
+
+
+@pytest.mark.parametrize("p", [(0.1, 0.9, 0.0), (0.2, 0.3, 0.15, 0.35), (0.0, 1.0)])
+def test_choice_matches_jax(p):
+    kd = key_data(7, 4)
+    n = len(p)
+    want = np.asarray(jax.vmap(lambda k: jax.random.choice(
+        k, n, shape=(16, 16), p=jnp.asarray(p, jnp.float32)))(jax_keys(kd)))
+    np.testing.assert_array_equal(rng.choice(torch_keys(kd), n, (16, 16), p).numpy(), want)
+
+
+def test_exponential_within_one_ulp_of_jax():
+    kd = key_data(8, 4)
+    want = np.asarray(jax.vmap(lambda k: jax.random.exponential(
+        k, (1000,), dtype=jnp.float32))(jax_keys(kd)))
+    np.testing.assert_array_max_ulp(rng.exponential(torch_keys(kd), (1000,)).numpy(),
+                                    want, maxulp=1)
+
+
+SPEC_PAIRS = [
+    ("grid", lambda m: m.GridSpec(values=(0, 3, 25), probs=(0.1, 0.9, 0.0), shape=(8, 8))),
+    ("grid_n", lambda m: m.GridSpec(n=4, shape=(5, 6))),
+    ("box", lambda m: m.BoxSpec(0.0, 1.0, shape=(3, 3))),
+    ("discrete", lambda m: m.DiscreteSpec(9)),
+    ("multidiscrete", lambda m: m.MultiDiscreteSpec((9, 2))),
+    ("tuple", lambda m: m.TupleSpec((m.BoxSpec(-1.0, 2.0, shape=(2,)),
+                                     m.MultiDiscreteSpec((16, 16))))),
+    ("dict", lambda m: m.DictSpec.of(a=m.DiscreteSpec(5), b=m.BoxSpec(0.0, 1.0, shape=(4,)))),
+]
+
+
+@pytest.mark.parametrize("name,make", SPEC_PAIRS, ids=[n for n, _ in SPEC_PAIRS])
+def test_spec_samples_match_jax(name, make):
+    kd = key_data(9, 3)
+    want = jax.tree.map(np.asarray, jax.vmap(make(jspaces).sample)(jax_keys(kd)))
+    got = make(tspaces).sample(torch_keys(kd))
+    flat_w = jax.tree.leaves(want)
+    flat_g = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), got,
+                                          is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    assert len(flat_w) == len(flat_g)
+    for w, g in zip(flat_w, flat_g):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_grid_spec_contains_and_validates():
+    spec = tspaces.GridSpec(values=(0, 3, 25), shape=(4, 4))
+    sample = spec.sample(torch_keys(key_data(10, 1)))[0]
+    assert spec.contains(sample)
+    assert not spec.contains(np.full((4, 4), 7))
+    assert not spec.contains(np.zeros((3, 4)))
+    with pytest.raises(ValueError):
+        tspaces.GridSpec(shape=(2, 2))
+    with pytest.raises(ValueError):
+        tspaces.GridSpec(values=(0, 1), probs=(1.0,), shape=(2, 2))
