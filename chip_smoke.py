@@ -1,34 +1,55 @@
 #!/usr/bin/env python3
-"""Drive gymca_torch's main path on one CUDA card and check it.
+"""Drive gymca_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-The main path is ``BulldozerCore(256, 256).step_batched`` over 4096 envs
-(256 MiB of int8 grid), carried by kernel K1 (``gymca_torch/csrc/
-windy_sparse.cu``).  Phases, each fatal on failure:
+Two paths, each carried by a kernel written by hand in CUDA:
+
+* slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
+  of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
+* slice 2: ``AdvancedForestFireBulldozerEnv(256, 256, num_envs=64)``,
+  ``stateless_step`` then ``conditional_reset``, carried by the fused
+  Alexandridis kernel (K2/K3, ``gymca_torch/csrc/alexandridis.cu``).
+
+Phases, each fatal on failure:
 
 1. device line: card, count, torch and CUDA versions, ``nvidia-smi`` name and
    power limit;
-2. build every ``gymca_torch/csrc/*.cu`` from the checkout, with the ptxas
-   report;
+2. build every ``gymca_torch/csrc/*.cu`` from the checkout, one ``nvcc`` per
+   source, all started together, with the ptxas report of each;
 3. K1 against its plain version at (4096, 256, 256) int8 with every env
    class, deferred edits and shots on trees and non-trees (tolerance 0);
 4. the same at (64, 64, 128) int32, at (16, 40, 50) int8, whose rows take
    the kernel's one-cell-per-lane path, and at (8, 512, 512) int8, whose bit
    masks pass 48 KiB of shared memory;
-5. the main path: reset 4096 envs, step them with random actions from a CUDA
-   ``torch.Generator`` under ``torch.cuda.set_sync_debug_mode("error")``,
-   K1's launch counter zeroed before and read after; then ``step_batched``
+5. the Alexandridis kernel against its plain version, grid and age with
+   tolerance 0, on synthetic inputs at (64, 256, 256), (4, 512, 512),
+   (2, 1024, 1024) and (16, 40, 50) (ragged tiles);
+6. slice 1's main path: reset 4096 envs, step them with random actions from
+   a CUDA ``torch.Generator`` under ``torch.cuda.set_sync_debug_mode("error")``,
+   the launch counters zeroed before and read after; then ``step_batched``
    against the eager batched step ``step`` on 64 envs, bit for bit, and K1
-   against its plain version on inputs recorded from the main path;
-6. times beside the card's name and power limit: env-steps/s; K1's device
-   time per launch and its no-op floor, from the profiler's kernel events;
-   its bound for the bytes and operations of the recorded launches; its
-   plain version; and a profiler trace of the step (device kernels per
-   step, idle share, time by kernel);
-7. one JSON line describing every kernel;
-8. the ``nvidia-smi`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   against its plain version on inputs recorded from the main path; then its
+   times (below);
+7. slice 2's main path: reset 64 envs at 256² and run 200 steps of
+   ``stateless_step`` + ``conditional_reset`` with random (move, shoot, 0)
+   actions under the same sync-error mode, the counters zeroed before and
+   read after (200 Alexandridis launches); the fused env on the card
+   against the same env on the CPU with the kernel's plain version (4 envs
+   at 64², bit for bit, env 0 made to terminate and reset half way); the
+   kernel against its plain version on three launches recorded from the
+   main path; 8 envs at 512² for 20 steps (the TPU's tiled sizes, 20
+   launches); and the fused path against the XLA-path counterpart
+   (``use_fused_ca=False``): mean fire and burned counts and mean fire age
+   at checkpoints inside a 4-sigma band of the cross-env noise; then its
+   times.  Times, for each path, beside the card's name and power limit:
+   env-steps/s; the kernel's device time per launch from the profiler's
+   kernel events, its bound for the bytes and operations of the recorded
+   launches, its plain version; the host time of parts of the step; and a
+   profiler trace of the step (device kernels per step, idle share, time
+   by kernel);
+8. one JSON line describing every kernel, and one per path;
+9. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -37,6 +58,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,13 +74,19 @@ PARITY_ENVS, PARITY_STEPS = 64, 100
 TIMING_REPS = 3
 PROFILE_STEPS = 10
 RECORDED_LAUNCHES = 10
-KERNEL_REPEATS = 10  # passes over the recorded launches when timing K1
+KERNEL_REPEATS = 10  # passes over the recorded launches when timing a kernel
+# Slice 2: the Advanced env (bench.py:143-195 runs 1000 steps, cut here to 200).
+ADV_ENVS, ADV_SIZE, ADV_STEPS = 64, 256, 200
+ADV_PARITY_ENVS, ADV_PARITY_SIZE, ADV_PARITY_STEPS = 4, 64, 20
+K3_ENVS, K3_SIZE, K3_STEPS = 8, 512, 20
+DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3.  Integer ALU rate:
 # the 67 TFLOP/s float32 peak counts an FMA as two operations on 128 lanes
 # per SM; Hopper's SM has 64 int32 lanes, so 67 / 4 = 16.75 T int32 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.75e12
+FP32_OPS_PER_S = 67e12
 # Integer operations K1's function needs per cell of a CA env: two compares
 # to classify the cell, two selects to write it back, and the word-parallel
 # stencil (about 40 operations per 32-cell word, counted from the kernel).
@@ -93,10 +121,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int):
-    """Mean device duration of K1's kernel over ``reps`` calls of ``fn``, and
-    the number of kernels seen, from the profiler's CUDA kernel events: the
-    kernel's own time on the card, with no host time between launches."""
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Mean device duration of the kernel named ``kernel`` over ``reps``
+    calls of ``fn``, and the number of its launches seen, from the
+    profiler's CUDA kernel events: the kernel's own time on the card, with
+    no host time between launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,9 +135,9 @@ def kernel_device_ms(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "windy_sparse_kernel" in e.name]
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
     if not us:
-        fail("the profiler shows no device time for windy_sparse_kernel")
+        fail(f"the profiler shows no device time for {kernel}")
     return sum(us) / len(us) / 1e3, len(us)
 
 
@@ -250,21 +279,201 @@ def parity(core, keys, gen):
     return mismatches, float(b.done.float().mean())
 
 
+# --- slice 2: the Advanced env and the Alexandridis kernel ----------------------------
+
+
+def alexandridis_inputs(n, h, w, gen):
+    """Alexandridis kernel inputs from a CUDA generator, and the env's
+    keywords at that size: fires, dousing, terrain factors away from 1 and
+    ages at and around 1."""
+    from gymca_torch.ops.alexandridis import AlexandridisCA
+
+    dev = "cuda"
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    cells = rand(n, h, w)
+    grid = torch.where(cells < 0.1, 2, torch.where(cells < 0.85, 1, 0)).to(torch.int8)
+    ages = torch.tensor([0.5, 1.0, 1.5, 2.0, 60.0], device=dev)
+    x = dict(
+        grid=grid,
+        fire_age=ages[torch.randint(0, 5, (n, h, w), generator=gen, device=dev)],
+        dousing=(rand(n, h, w) < 0.05).to(torch.int8),
+        vdf=(0.5 + 2.5 * rand(n, h, w)).to(torch.bfloat16),
+        exp_slope=(0.8 + 0.45 * rand(n, 3, 3, h, w)).to(torch.bfloat16),
+        wind_rows=0.5 + 3.5 * rand(n, 8),
+        seeds=torch.randint(0, 2**32, (n, 2), generator=gen, device=dev, dtype=torch.int64),
+    )
+    return x, alexandridis_keywords(AlexandridisCA(h))
+
+
+def alexandridis_keywords(ca):
+    from gymca_torch.ops.stencil import telescoped_box_coeffs
+
+    return dict(empty=ca.empty, tree=ca.tree, fire=ca.fire,
+                layer_coeffs=telescoped_box_coeffs(ca.burn_layer_weights),
+                dousing_border=float(ca._dousing_border),
+                dousing_inner=float(ca._dousing_inner),
+                fire_age_min=int(ca.fire_age_min), fire_age_max=int(ca.fire_age_max))
+
+
+def alexandridis_vs_plain(x, kw):
+    """Max |kernel - plain| over new grids and ages on the same inputs, and
+    the number of trees the kernel ignited."""
+    from gymca_torch.ops.alexandridis_kernel import (
+        alexandridis_fused_step,
+        alexandridis_fused_step_plain,
+    )
+
+    g_k, a_k = alexandridis_fused_step(**x, **kw)
+    g_p, a_p = alexandridis_fused_step_plain(**x, **kw)
+    torch.cuda.synchronize()
+    err = max((g_k.to(torch.int32) - g_p.to(torch.int32)).abs().max().item(),
+              (a_k - a_p).abs().max().item())
+    if torch.isnan(a_k).any() or not torch.equal(torch.isnan(a_k), torch.isnan(a_p)):
+        err = float("inf")
+    ignited = int(((g_k == kw["fire"]) & (x["grid"] == kw["tree"])).sum())
+    return err, ignited
+
+
+def check_alexandridis(label, x, kw):
+    err, ignited = alexandridis_vs_plain(x, kw)
+    log(f"[kernel] alexandridis {tuple(x['grid'].shape)} radius {len(kw['layer_coeffs'])}: "
+        f"{ignited} trees ignited, max_abs_err {err} (tolerance 0, grid and age)")
+    if err != 0:
+        fail(f"alexandridis disagrees with its plain version at {label}")
+    return err
+
+
+def adv_actions(gen, steps, n):
+    """Random (steps, n, 3) int32 actions (move 0-8, shoot 0-1, extension 0)
+    from one torch.randint launch."""
+    r = torch.randint(0, 18, (steps, n), generator=gen, device="cuda")
+    return torch.stack([r // 2, r % 2, torch.zeros_like(r)], dim=-1).to(torch.int32)
+
+
+def adv_run(env, obs, info, actions):
+    """``stateless_step`` then ``conditional_reset`` per action; returns the
+    last observation and info and the last ``stateless_step`` tuple."""
+    for a in actions:
+        step = env.stateless_step(a, obs, info)
+        reset = env.conditional_reset(step, a)
+        obs, info = reset[0], reset[4]
+    return obs, info, step
+
+
+def adv_record_kernel_inputs(env, obs, info, actions):
+    """Step the Advanced path and keep copies of the kernel's inputs."""
+    import gymca_torch.envs.advanced as advanced
+
+    real = advanced.alexandridis_fused_step
+    recorded = []
+
+    def recorder(*args, **kw):
+        names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
+        recorded.append(({k: t.clone() for k, t in zip(names, args)}, kw))
+        return real(*args, **kw)
+
+    advanced.alexandridis_fused_step = recorder
+    try:
+        adv_run(env, obs, info, actions)
+    finally:
+        advanced.alexandridis_fused_step = real
+    return recorded
+
+
+def adv_parity(gen):
+    """The fused env on the card against the same env on the CPU running
+    the kernel's plain version: every leaf, bit for bit."""
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+
+    n, size = ADV_PARITY_ENVS, ADV_PARITY_SIZE
+    cpu = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(SEED, device="cpu"),
+                                         num_envs=n, use_fused_ca=True, device="cpu")
+    gpu = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(SEED, device="cpu"),
+                                         num_envs=n, terrain=cpu._terrain_ctx)
+    (c_obs, c_info), (g_obs, g_info) = cpu.reset(), gpu.reset()
+    mismatches = []
+    for i, a in enumerate(adv_actions(gen, ADV_PARITY_STEPS, n)):
+        if i == ADV_PARITY_STEPS // 2:  # env 0 loses its fire: reset on both
+            for pe in (c_obs[1]["per_env_context"], g_obs[1]["per_env_context"]):
+                tg = pe["true_grid"]
+                tg[0] = torch.where(tg[0] == 2, 1, tg[0])
+        cs = cpu.conditional_reset(cpu.stateless_step(a.cpu(), c_obs, c_info), a.cpu())
+        gs = gpu.conditional_reset(gpu.stateless_step(a, g_obs, g_info), a)
+        (c_obs, c_info), (g_obs, g_info) = (cs[0], cs[4]), (gs[0], gs[4])
+        pairs = {"rgb": (g_obs[0], c_obs[0]), "reward": (gs[1], cs[1]),
+                 "position": (g_obs[1]["position"], c_obs[1]["position"]),
+                 "time": (g_obs[1]["time"], c_obs[1]["time"])}
+        pairs.update({k: (g_obs[1]["per_env_context"][k], v)
+                      for k, v in c_obs[1]["per_env_context"].items()})
+        pairs.update({f"info.{k}": (g_info[k], v) for k, v in c_info.items()})
+        mismatches += [f"step {i} {k}" for k, (x, y) in pairs.items()
+                       if not torch.equal(x.cpu(), y)]
+        if i == ADV_PARITY_STEPS // 2 and float(c_info["steps_elapsed"][0]) != 0.0:
+            mismatches.append(f"step {i}: env 0 was not reset")
+    fires = int((c_obs[1]["per_env_context"]["true_grid"] == 2).sum())
+    return mismatches, fires
+
+
+def fire_stats(env, obs, info, steps, checkpoints):
+    """Per-env fire count, burned count (trees at the reset that are trees no
+    more) and mean age of the burning cells at the checkpoints, the agents
+    standing still (as ``scripts/validate_fused_ca_tpu.py`` does)."""
+    n = env.num_envs
+    stay = torch.tensor([[4, 0, 0]] * n, dtype=torch.int32, device="cuda")
+    trees0 = (obs[1]["per_env_context"]["true_grid"] == 1).sum(dim=(1, 2))
+    out = {}
+    for t in range(1, steps + 1):
+        obs, info, _ = adv_run(env, obs, info, [stay])
+        if t in checkpoints:
+            pe = obs[1]["per_env_context"]
+            fire = pe["true_grid"] == 2
+            fires = fire.sum(dim=(1, 2))
+            age = torch.where(fire, pe["fire_age"], 0.0).sum(dim=(1, 2)) / fires.clamp(min=1)
+            burned = trees0 - (pe["true_grid"] == 1).sum(dim=(1, 2))
+            out[t] = [v.double().cpu() for v in (fires, burned, age)]
+    return out
+
+
+def alexandridis_work(x, kw):
+    """Bytes the Alexandridis step must move and operations it must do on
+    these inputs.  Bytes per cell: grid (1), age (4), dousing (1), vdf (2)
+    and the 8 direction planes of exp_slope (16; the centre plane is no
+    input of the function) read, grid (1) and age (4) written: 29; per env
+    the wind row (32) and seeds (16).  Operations per cell, counted from the
+    kernel: integer, 77 for threefry2x32 (2 key adds, then 5 x (4 rounds of
+    add, rotate, xor, and 3 key-schedule adds)), 3 per box sum of the R + 2
+    boxes, 4 to build the two summed-area tables, and 4 for the uniform, the
+    age and the rule's selects; float32, 2R for the heat, 3 for the dousing,
+    2 for the base, 5 for each of 8 directions and 2 for the threshold and
+    the age update."""
+    n, h, w = x["grid"].shape
+    r = len(kw["layer_coeffs"])
+    cells = n * h * w
+    moved = cells * 29 + n * (32 + 16)
+    int_ops = cells * (77 + 3 * (r + 2) + 4 + 4)
+    flt_ops = cells * (2 * r + 3 + 2 + 5 * 8 + 2)
+    return moved, int_ops, flt_ops
+
+
 # --- profile -----------------------------------------------------------------------
 
 
-def profile_steps(core, states, actions, card):
+def profile_steps(run, steps, label, card):
+    """Trace ``run()``, which makes ``steps`` steps of a warmed-up path: device
+    kernels per step, busy time, idle share and time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_steps(core, states, actions[:2])  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_steps(core, states, actions)
+        run()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    steps = len(actions)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -281,7 +490,7 @@ def profile_steps(core, states, actions, card):
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
     idle = 1.0 - busy / span
-    log(f"[profile] [{card}] step_batched {N_ENVS} x {H}x{W}, {steps} steps traced: "
+    log(f"[profile] [{card}] {label}, {steps} steps traced: "
         f"{len(spans) / steps} device kernels/step, device busy {busy / steps} us/step "
         f"of a {span / steps} us/step device span (idle share {idle}); host wall "
         f"under the profiler {host_s * 1e6 / steps} us/step")
@@ -310,6 +519,11 @@ def main() -> int:
         fail(f"gymca_torch imported from {gymca_torch.__file__}, not this checkout")
     from gymca_torch import _build, rng
     from gymca_torch.envs.bulldozer import BulldozerCore, derive_step_key
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+    from gymca_torch.ops.alexandridis_kernel import (
+        alexandridis_fused_step,
+        alexandridis_fused_step_plain,
+    )
     from gymca_torch.ops.windy_kernel import windy_fused_step, windy_fused_step_plain
 
     # 1. device
@@ -341,7 +555,14 @@ def main() -> int:
         check_kernel("past 48 KiB", synthetic_inputs(8, 512, 512, torch.int8, 5, gen)),
     )
 
-    # 5. main path
+    # 5. the Alexandridis kernel against plain
+    adv_max_err = max(
+        check_alexandridis(f"({n}, {h}, {w})", *alexandridis_inputs(n, h, w, gen))
+        for n, h, w in ((ADV_ENVS, ADV_SIZE, ADV_SIZE), (4, 512, 512), (2, 1024, 1024),
+                        (16, 40, 50))
+    )
+
+    # 6. slice 1's main path
     core = BulldozerCore(H, W)
     keys = rng.split(rng.key(SEED, device="cuda"), N_ENVS)
     torch.cuda.synchronize()
@@ -354,16 +575,17 @@ def main() -> int:
     actions = draw_actions(gen, MAIN_STEPS, N_ENVS)
     states = reset_states.clone()
     torch.cuda.synchronize()
-    windy_fused_step.launches = 0
+    windy_fused_step.launches = alexandridis_fused_step.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         states, out = run_steps(core, states, actions)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = windy_fused_step.launches
+    others = alexandridis_fused_step.launches
     torch.cuda.synchronize()
     log(f"[main] {MAIN_STEPS} steps of step_batched under sync_debug_mode=error: "
-        f"{launches} windy kernel launches, done fraction "
+        f"{launches} windy kernel launches ({others} alexandridis), done fraction "
         f"{states.done.float().mean().item()}")
     if launches != MAIN_STEPS:
         fail(f"expected {MAIN_STEPS} windy kernel launches on the main path, got {launches}")
@@ -388,7 +610,7 @@ def main() -> int:
         fail("windy_sparse disagrees with its plain version on main-path inputs")
     max_err = max(max_err, rec_err)
 
-    # 6. times
+    # 6. slice 1's times
     rates = []
     for rep in range(TIMING_REPS):
         s = reset_states.clone()
@@ -411,7 +633,8 @@ def main() -> int:
             windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
 
     kernel_pass()  # warm
-    kernel_ms, kernel_n = kernel_device_ms(kernel_pass, KERNEL_REPEATS)
+    kernel_ms, kernel_n = kernel_device_ms(kernel_pass, KERNEL_REPEATS,
+                                           "windy_sparse_kernel")
     work = [k1_work(grid, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
     bytes_moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
     bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
@@ -419,7 +642,7 @@ def main() -> int:
     noop = torch.zeros_like(kin[0][1])
     noop_ms, noop_n = kernel_device_ms(
         lambda: windy_fused_step(grid, kin[0][0], noop, kin[0][2], kin[0][3],
-                                 empty=0, tree=3, fire=25), 100)
+                                 empty=0, tree=3, fire=25), 100, "windy_sparse_kernel")
     plain_grid = grid.clone()
     plain_ms = cuda_ms(lambda: windy_fused_step_plain(plain_grid, *kin[0], empty=0, tree=3,
                                                       fire=25), 3)
@@ -447,9 +670,190 @@ def main() -> int:
         f"{step_us} us, derive_step_key {key_us} us; windy kernel device time "
         f"{kernel_ms * 1e3} us")
 
-    prof = profile_steps(core, reset_states.clone(), actions[:PROFILE_STEPS], card)
+    prof_states = reset_states.clone()
+    run_steps(core, prof_states, actions[:2])  # warm
+    prof = profile_steps(lambda: run_steps(core, prof_states, actions[:PROFILE_STEPS]),
+                         PROFILE_STEPS, f"step_batched {N_ENVS} x {H}x{W}", card)
 
-    # 7-8. result lines
+    # 7. slice 2's main path
+    env = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
+                                         num_envs=ADV_ENVS)
+    if not env.use_fused_ca:
+        fail("the Advanced env does not take the fused kernel on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_obs, reset_info = env.reset()
+    torch.cuda.synchronize()
+    log(f"[advanced] reset {ADV_ENVS} envs at {ADV_SIZE}x{ADV_SIZE} (uint8 obs, hidden "
+        f"terrain, CA radius {env.ca.burn_kernel_radius}) in {time.perf_counter() - t0:.2f}s")
+    adv_acts = adv_actions(gen, ADV_STEPS, ADV_ENVS)
+    torch.cuda.synchronize()
+    windy_fused_step.launches = alexandridis_fused_step.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adv_obs, adv_info, adv_last = adv_run(env, reset_obs, reset_info, adv_acts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    adv_launches = alexandridis_fused_step.launches
+    others = windy_fused_step.launches
+    torch.cuda.synchronize()
+    rgb, reward = adv_obs[0], adv_last[1]
+    fires = (adv_obs[1]["per_env_context"]["true_grid"] == 2).sum(dim=(1, 2)).float()
+    log(f"[advanced] {ADV_STEPS} steps of stateless_step + conditional_reset under "
+        f"sync_debug_mode=error: {adv_launches} alexandridis kernel launches ({others} "
+        f"windy), done fraction {adv_last[2].float().mean().item()}, mean reward "
+        f"{reward.mean().item()}, fires per env {fires.mean().item()}")
+    if adv_launches != ADV_STEPS:
+        fail(f"expected {ADV_STEPS} alexandridis launches on the Advanced path, got "
+             f"{adv_launches}")
+    if reward.shape != (ADV_ENVS,) or not torch.isfinite(reward).all():
+        fail("Advanced path rewards are not finite (N,) values")
+    if rgb.shape != (ADV_ENVS, ADV_SIZE, ADV_SIZE, 3) or rgb.dtype != torch.uint8:
+        fail(f"Advanced observations are {tuple(rgb.shape)} {rgb.dtype}")
+
+    adv_mismatches, adv_fires = adv_parity(gen)
+    if adv_mismatches:
+        fail(f"the fused env on the card differs from the CPU: {adv_mismatches[:10]}")
+    log(f"[advanced] {ADV_PARITY_ENVS} envs at {ADV_PARITY_SIZE}x{ADV_PARITY_SIZE} x "
+        f"{ADV_PARITY_STEPS} steps: every observation, context, reward and info leaf on "
+        f"the card equals the CPU env with the kernel's plain version, bit for bit "
+        f"({adv_fires} fires at the end)")
+
+    adv_recorded = adv_record_kernel_inputs(env, adv_obs, adv_info,
+                                            adv_actions(gen, RECORDED_LAUNCHES, ADV_ENVS))
+    adv_rec_err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in adv_recorded[:3])
+    log(f"[kernel] alexandridis on main-path inputs (3 recorded launches): max_abs_err "
+        f"{adv_rec_err} (tolerance 0, grid and age)")
+    if adv_rec_err != 0:
+        fail("alexandridis disagrees with its plain version on main-path inputs")
+    adv_max_err = max(adv_max_err, adv_rec_err)
+
+    env_k3 = AdvancedForestFireBulldozerEnv(K3_SIZE, K3_SIZE, key=rng.key(SEED),
+                                            num_envs=K3_ENVS)
+    k3_obs, k3_info = env_k3.reset()
+    k3_acts = adv_actions(gen, K3_STEPS, K3_ENVS)
+    torch.cuda.synchronize()
+    alexandridis_fused_step.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k3_obs, _, k3_last = adv_run(env_k3, k3_obs, k3_info, k3_acts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k3_launches = alexandridis_fused_step.launches
+    torch.cuda.synchronize()
+    log(f"[advanced] {K3_ENVS} envs at {K3_SIZE}x{K3_SIZE} (the TPU's tiled sizes, CA radius "
+        f"{env_k3.ca.burn_kernel_radius}), {K3_STEPS} steps: {k3_launches} alexandridis "
+        f"launches, mean reward {k3_last[1].mean().item()}")
+    if k3_launches != K3_STEPS or not torch.isfinite(k3_last[1]).all():
+        fail(f"expected {K3_STEPS} alexandridis launches and finite rewards at {K3_SIZE}²")
+    k3_recorded = adv_record_kernel_inputs(env_k3, k3_obs, k3_info,
+                                           adv_actions(gen, 3, K3_ENVS))
+
+    env_xla = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
+                                             num_envs=ADV_ENVS, use_fused_ca=False,
+                                             terrain=env._terrain_ctx)
+    t0 = time.perf_counter()
+    fused_stats = fire_stats(env, reset_obs, reset_info, DIST_STEPS, DIST_CHECKPOINTS)
+    t1 = time.perf_counter()
+    xla_stats = fire_stats(env_xla, *env_xla.reset(), DIST_STEPS, DIST_CHECKPOINTS)
+    t2 = time.perf_counter()
+    log(f"[distribution] [{card}] {ADV_ENVS} envs at {ADV_SIZE}x{ADV_SIZE} from one reset, "
+        f"agents standing still, {DIST_STEPS} steps: fused path {t1 - t0:.2f}s, XLA-path "
+        f"counterpart (AlexandridisCA, threefry uniforms) {t2 - t1:.2f}s")
+    outside = []
+    for t in DIST_CHECKPOINTS:
+        for i, what in enumerate(("fire cells", "burned cells", "mean fire age")):
+            f, x = fused_stats[t][i], xla_stats[t][i]
+            band = 4.0 * math.hypot(f.std(unbiased=False).item() / math.sqrt(ADV_ENVS),
+                                    x.std(unbiased=False).item() / math.sqrt(ADV_ENVS))
+            diff = abs(f.mean().item() - x.mean().item())
+            log(f"[distribution] t={t} {what} per env: fused mean {f.mean().item()}, "
+                f"XLA-path mean {x.mean().item()}, |diff| {diff}, 4-sigma band {band}")
+            if diff > band:
+                outside.append(f"t={t} {what}")
+    if outside:
+        fail(f"fused and XLA-path statistics differ beyond 4 sigma: {outside}")
+
+    # 7. slice 2's times
+    adv_rates = []
+    for rep in range(TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, last = adv_run(env, reset_obs, reset_info, adv_acts)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        adv_rates.append((ADV_ENVS * ADV_STEPS / dt, dt, float(last[2].float().mean())))
+    adv_best = max(adv_rates)
+    log(f"[time] [{card}] Advanced stateless_step + conditional_reset {ADV_ENVS} x "
+        f"{ADV_SIZE}x{ADV_SIZE}, {ADV_STEPS} steps, best of {TIMING_REPS}: {adv_best[0]} "
+        f"env-steps/s ({adv_best[1] * 1e3 / ADV_STEPS} ms/step); reps " + ", ".join(
+            f"{r[0]} env-steps/s (done fraction {r[2]})" for r in adv_rates))
+
+    def adv_kernel_pass():
+        for x, kw in adv_recorded:
+            alexandridis_fused_step(**x, **kw)
+
+    adv_kernel_pass()  # warm
+    adv_kernel_ms, adv_kernel_n = kernel_device_ms(adv_kernel_pass, KERNEL_REPEATS,
+                                                   "alexandridis_kernel")
+    work = [alexandridis_work(x, kw) for x, kw in adv_recorded]
+    a_bytes, a_int, a_flt = (sum(v) / len(work) for v in zip(*work))
+    a_bytes_ms = a_bytes / HBM_BYTES_PER_S * 1e3
+    a_int_ms, a_flt_ms = a_int / INT32_OPS_PER_S * 1e3, a_flt / FP32_OPS_PER_S * 1e3
+    adv_bound_ms, adv_bound_by = max((a_bytes_ms, "bytes"),
+                                     (max(a_int_ms, a_flt_ms), "operations"))
+    x0, kw0 = adv_recorded[0]
+    adv_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**x0, **kw0), 3)
+    log(f"[time] [{card}] alexandridis kernel: {adv_kernel_ms * 1e3} us/launch of device "
+        f"time over {adv_kernel_n} launches cycling {len(adv_recorded)} recorded main-path "
+        f"launches ({ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}); bound {adv_bound_ms * 1e3} us by "
+        f"{adv_bound_by} (bytes: {a_bytes / 1e6} MB/launch at 3.35 TB/s = {a_bytes_ms * 1e3} "
+        f"us; operations: {a_int / 1e6} M int32 at 16.75 T/s = {a_int_ms * 1e3} us and "
+        f"{a_flt / 1e6} M float32 at 67 T/s = {a_flt_ms * 1e3} us, on separate pipes); "
+        f"plain version {adv_plain_ms * 1e3} us/call (CUDA events)")
+
+    def k3_pass():
+        for x, kw in k3_recorded:
+            alexandridis_fused_step(**x, **kw)
+
+    k3_pass()  # warm
+    k3_ms, k3_n = kernel_device_ms(k3_pass, KERNEL_REPEATS, "alexandridis_kernel")
+    k3_bytes, k3_int, k3_flt = alexandridis_work(*k3_recorded[0])
+    k3_bound_ms = max(k3_bytes / HBM_BYTES_PER_S, k3_int / INT32_OPS_PER_S,
+                      k3_flt / FP32_OPS_PER_S) * 1e3
+    k3_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**k3_recorded[0][0],
+                                                                **k3_recorded[0][1]), 3)
+    log(f"[time] [{card}] alexandridis kernel at {K3_ENVS} x {K3_SIZE}x{K3_SIZE} (radius "
+        f"{len(k3_recorded[0][1]['layer_coeffs'])}): {k3_ms * 1e3} us/launch of device time "
+        f"over {k3_n} launches of {len(k3_recorded)} recorded ones; bound {k3_bound_ms * 1e3} "
+        f"us ({k3_bytes / 1e6} MB at 3.35 TB/s = {k3_bytes / HBM_BYTES_PER_S * 1e6} us; "
+        f"{k3_int / 1e6} M int32 at 16.75 T/s = {k3_int / INT32_OPS_PER_S * 1e6} us); plain "
+        f"version {k3_plain_ms * 1e3} us/call (CUDA events)")
+
+    def host_us(fn, reps=20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    step_tuple = env.stateless_step(adv_acts[0], reset_obs, reset_info)
+    fresh_keys = rng.fold_in(reset_obs[1]["per_env_context"]["key"], 7)
+    step_us = host_us(lambda: env.stateless_step(adv_acts[0], reset_obs, reset_info))
+    reset_us = host_us(lambda: env.conditional_reset(step_tuple, adv_acts[0]))
+    fresh_us = host_us(lambda: env._initial_per_env_state(fresh_keys))
+    log(f"[time] [{card}] parts of an Advanced step, host clock to a synchronize: "
+        f"stateless_step {step_us} us, conditional_reset {reset_us} us (no env terminated; "
+        f"of it the fresh states of every env {fresh_us} us); alexandridis kernel device "
+        f"time {adv_kernel_ms * 1e3} us")
+
+    adv_run(env, reset_obs, reset_info, adv_acts[:2])  # warm
+    adv_prof = profile_steps(
+        lambda: adv_run(env, reset_obs, reset_info, adv_acts[:PROFILE_STEPS]), PROFILE_STEPS,
+        f"Advanced stateless_step + conditional_reset {ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}", card)
+
+    # 8-9. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -462,10 +866,24 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "alexandridis",
+        "route": "cuda",
+        "source": "gymca_torch/csrc/alexandridis.cu",
+        "replaces": "gymca_tpu/ops/pallas_alexandridis.py:567",
+        "launches": adv_launches,
+        "max_abs_err": adv_max_err,
+        "ms": adv_kernel_ms,
+        "plain_ms": adv_plain_ms,
+        "bound_ms": adv_bound_ms,
+        "bound_by": adv_bound_by,
+        "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels}))
     if prof is not None:
         log(json.dumps({"step": {"env_steps_per_sec": best[0], **prof}}))
+    if adv_prof is not None:
+        log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best[0], **adv_prof}}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

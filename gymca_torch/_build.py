@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "Built", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "Built", "build", "load", "check_operand"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
@@ -78,6 +78,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
                            "gymca_torch builds its kernels from a checkout of the repository")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Built] = {}
+    running = []  # one nvcc per source, all started before any is waited on
     for src in srcs:
         target = _target(src)
         log_path = target.with_suffix(".log")
@@ -85,15 +86,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
             done[src.stem] = Built(src.stem, target, None, log_path.read_text())
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((src, target, tmp, proc, time.perf_counter()))
+    failed = []
+    for src, target, tmp, proc, t0 in running:
+        out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA build of {src.name} failed: nvcc exited "
-                               f"{proc.returncode}\n{proc.stdout}")
+            failed.append(f"CUDA build of {src.name} failed: nvcc exited "
+                          f"{proc.returncode}\n{out}")
+            continue
         os.replace(tmp, target)  # atomic: concurrent builds agree
-        log_path.write_text(proc.stdout)
-        done[src.stem] = Built(src.stem, target, time.perf_counter() - t0, proc.stdout)
+        target.with_suffix(".log").write_text(out)
+        done[src.stem] = Built(src.stem, target, time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return done
 
 
@@ -101,3 +108,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     return ctypes.CDLL(str(build([name])[name].path))
+
+
+def check_operand(name: str, t, shape, dtype, device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous tensor of ``dtype``
+    and ``shape`` on ``device``: what a kernel given ``t.data_ptr()`` reads."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the grid on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -12,6 +12,7 @@ object with
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -49,6 +50,12 @@ class Spec:
 
 def _freeze(x) -> tuple:
     return tuple(x) if not isinstance(x, tuple) else x
+
+
+@functools.lru_cache(maxsize=64)
+def _device_values(values: Tuple[int, ...], dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, copied there once."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _numpy(x) -> np.ndarray:
@@ -95,7 +102,7 @@ class GridSpec(Spec):
 
     def sample(self, keys: torch.Tensor) -> torch.Tensor:
         """``(..., 2)`` keys -> ``(..., *shape)`` lattices of ``dtype``."""
-        values = torch.tensor(self.values, dtype=self.dtype, device=keys.device)
+        values = _device_values(self.values, self.dtype, keys.device)
         idx = rng.choice(keys, self.n, self.shape, self.probs)
         return values[idx]
 

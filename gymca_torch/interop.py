@@ -1,11 +1,18 @@
 """Env state carried between the JAX package and the port, as numpy arrays.
 
-The env has no weights: what crosses between ``gymca_tpu`` and
-``gymca_torch`` is the batched ``EnvState``.  The JAX side hands over its
-leaves as numpy arrays (the key as ``jax.random.key_data(states.key)``,
-uint32); :func:`env_state_from_numpy` builds the port's state from them on a
-given device, and :func:`env_state_to_numpy` gives them back in the JAX
-package's dtypes.
+The envs have no weights: what crosses between ``gymca_tpu`` and
+``gymca_torch`` is the batched state.  The JAX side hands over its leaves as
+numpy arrays (keys as ``jax.random.key_data(...)``, uint32):
+
+* the windy Bulldozer's ``EnvState``: :func:`env_state_from_numpy` builds the
+  port's state from them on a given device, :func:`env_state_to_numpy` gives
+  them back in the JAX package's dtypes;
+* the Advanced env's ``(rgb, context)`` observation and ``info``:
+  :func:`advanced_obs_from_numpy` and :func:`advanced_obs_to_numpy`.
+  bfloat16 leaves (``exp_slope``, ``veg_den_factor``) travel bit for bit as
+  their 16-bit words: numpy holds JAX's as ``ml_dtypes.bfloat16``, which
+  torch does not take, so they go through a ``uint16`` view, and come back
+  as ``uint16`` words (``.view(jnp.bfloat16)`` on the JAX side).
 """
 
 from __future__ import annotations
@@ -18,7 +25,10 @@ import torch
 from gymca_torch.config import resolve_device
 from gymca_torch.core.env import EnvState
 
-__all__ = ["env_state_from_numpy", "env_state_to_numpy"]
+__all__ = ["env_state_from_numpy", "env_state_to_numpy", "advanced_obs_from_numpy",
+           "advanced_obs_to_numpy"]
+
+_BF16_KEYS = ("exp_slope", "veg_den_factor")
 
 
 def _to_torch(x, device) -> torch.Tensor:
@@ -32,14 +42,10 @@ def env_state_from_numpy(*, grid, context: Dict[str, np.ndarray], key, done,
     ``key`` as (N, 2) uint32 key data, ``done``, ``steps_elapsed`` and
     ``reward_accumulated`` (N,)."""
     dev = resolve_device(device)
-    key = np.asarray(key)
-    if key.dtype != np.uint32 or key.shape[-1:] != (2,):
-        raise ValueError(f"key must be (..., 2) uint32 key data, got "
-                         f"{key.dtype} {key.shape}")
     return EnvState(
         grid=_to_torch(grid, dev),
         context={k: _to_torch(v, dev) for k, v in context.items()},
-        key=_to_torch(key.astype(np.int64), dev),
+        key=_to_torch(_key_from_numpy(key), dev),
         done=_to_torch(done, dev),
         steps_elapsed=_to_torch(steps_elapsed, dev),
         reward_accumulated=_to_torch(reward_accumulated, dev),
@@ -61,3 +67,69 @@ def env_state_to_numpy(state: EnvState) -> Dict[str, object]:
         "steps_elapsed": host(state.steps_elapsed),
         "reward_accumulated": host(state.reward_accumulated),
     }
+
+
+def _bf16_from_numpy(x, device) -> torch.Tensor:
+    """A 2-byte float array (``ml_dtypes.bfloat16``, or its ``uint16``
+    words) as a torch bfloat16 tensor with the same bits."""
+    words = np.ascontiguousarray(np.asarray(x)).view(np.uint16).view(np.int16)
+    return torch.tensor(words, device=device).view(torch.bfloat16)
+
+
+def _key_from_numpy(key) -> np.ndarray:
+    key = np.asarray(key)
+    if key.dtype != np.uint32 or key.shape[-1:] != (2,):
+        raise ValueError(f"key must be (..., 2) uint32 key data, got "
+                         f"{key.dtype} {key.shape}")
+    return key.astype(np.int64)
+
+
+def advanced_obs_from_numpy(rgb, context: Dict[str, object], info: Dict[str, object],
+                            *, device=None):
+    """The port's Advanced ``((rgb, context), info)`` from the JAX env's
+    leaves as numpy arrays: ``context`` holds ``per_env_context`` (with the
+    per-env terrain and ``key`` as (N, 2) uint32 key data),
+    ``shared_context``, ``position`` and ``time``."""
+    dev = resolve_device(device)
+    per_env = {}
+    for k, v in context["per_env_context"].items():
+        if k in _BF16_KEYS:
+            per_env[k] = _bf16_from_numpy(v, dev)
+        elif k == "key":
+            per_env[k] = _to_torch(_key_from_numpy(v), dev)
+        else:
+            per_env[k] = _to_torch(v, dev)
+    out = {
+        "per_env_context": per_env,
+        "shared_context": {k: _to_torch(v, dev)
+                           for k, v in context["shared_context"].items()},
+        "position": _to_torch(context["position"], dev),
+        "time": _to_torch(context["time"], dev),
+    }
+    return (_to_torch(rgb, dev), out), {k: _to_torch(v, dev) for k, v in info.items()}
+
+
+def advanced_obs_to_numpy(obs, info):
+    """``(rgb, context, info)`` as numpy arrays, keyed as
+    :func:`advanced_obs_from_numpy` takes them: keys as uint32 key data,
+    bfloat16 leaves as their ``uint16`` words."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    rgb, context = obs
+    per_env = {}
+    for k, v in context["per_env_context"].items():
+        if k in _BF16_KEYS:
+            per_env[k] = host(v.view(torch.int16)).view(np.uint16)
+        elif k == "key":
+            per_env[k] = host(v).astype(np.uint32)
+        else:
+            per_env[k] = host(v)
+    out = {
+        "per_env_context": per_env,
+        "shared_context": {k: host(v) for k, v in context["shared_context"].items()},
+        "position": host(context["position"]),
+        "time": host(context["time"]),
+    }
+    return host(rgb), out, {k: host(v) for k, v in info.items()}

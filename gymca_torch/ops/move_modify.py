@@ -6,7 +6,9 @@ Counterpart of ``gymca_tpu/ops/move_modify.py``:
   not_move) displaces the agent, clamped at the borders;
 * ``Modify`` — when the modify sub-action is truthy, substitutes the grid
   cell at the agent position through an ``effects`` mapping and reports a
-  ``hit`` flag in the context.
+  ``hit`` flag in the context;
+* ``ModifyDousing`` — the Advanced env's shot: writes
+  ``dousing_count[pos] = 1``; the grid itself is untouched.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from gymca_torch.config import TYPE_INT, resolve_device
 from gymca_torch.core.operator import Operator
 from gymca_torch.core.spaces import DiscreteSpec, MultiDiscreteSpec
 
-__all__ = ["Move", "Modify", "MoveModify", "DEFAULT_DIRECTIONS", "move_position"]
+__all__ = ["Move", "Modify", "ModifyDousing", "MoveModify", "DEFAULT_DIRECTIONS",
+           "move_position"]
 
 # Action ids 0..8:
 #   0 up_left, 1 up, 2 up_right, 3 left, 4 not_move, 5 right,
@@ -125,6 +128,26 @@ class Modify(Operator):
         new_grid = grid.clone()
         new_grid[env, row, col] = torch.where(do, mapped, cell)
         return new_grid, (position, hit)
+
+
+class ModifyDousing(Operator):
+    """Advanced-env shooting: mark ``dousing_count[pos] = 1`` where the
+    action is 1.  Context = ``(position, dousing_count)``: (N, 2) positions
+    and (N, H, W) counts; returns a new count tensor."""
+
+    grid_dependant = False
+    action_dependant = True
+    context_dependant = True
+    deterministic = True
+
+    def update(self, grid, action, context, keys=None):
+        position, dousing_count = context
+        env = torch.arange(dousing_count.shape[0], device=dousing_count.device)
+        row, col = position[..., 0].long(), position[..., 1].long()
+        new_dousing = dousing_count.clone()
+        new_dousing[env, row, col] = torch.where(
+            action == 1, 1, dousing_count[env, row, col]).to(dousing_count.dtype)
+        return grid, (position, new_dousing)
 
 
 class MoveModify(Operator):

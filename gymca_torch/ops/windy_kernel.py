@@ -115,17 +115,6 @@ def _launcher():
     return fn
 
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the grid on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def windy_fused_step(
     grid: torch.Tensor,  # (N, H, W) int8 or int32, updated in place
     weights: torch.Tensor,  # (N, 8) int32 — windy_weights_from_roll output
@@ -159,10 +148,10 @@ def windy_fused_step(
         raise ValueError(f"grid must be int8 or int32, got {grid.dtype}")
     if not grid.is_contiguous():
         raise ValueError("grid must be contiguous")
-    _check("weights", weights, (n, 8), torch.int32, dev)
-    _check("params", params, (n, 4), torch.int32, dev)
-    _check("edits", edits, (n, edits.shape[-1]), torch.int32, dev)
-    _check("edit_counts", edit_counts, (n,), torch.int32, dev)
+    _build.check_operand("weights", weights, (n, 8), torch.int32, dev)
+    _build.check_operand("params", params, (n, 4), torch.int32, dev)
+    _build.check_operand("edits", edits, (n, edits.shape[-1]), torch.int32, dev)
+    _build.check_operand("edit_counts", edit_counts, (n,), torch.int32, dev)
     assert_windy_encoding(empty, tree, fire)
     info = torch.iinfo(grid.dtype)
     if not info.min <= empty < tree < fire <= info.max:

@@ -20,6 +20,7 @@ small kernels per call.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -151,9 +152,73 @@ def randint(keys: torch.Tensor, shape: Sequence[int], minval: int,
     return (minval + offset % span).to(torch.int32)
 
 
+def _f32(bits: int) -> float:
+    """The float32 whose bit pattern is ``bits``, as a Python float."""
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once: the float64 product of two float32
+    values is exact, so only the add rounds before the cast (double rounding
+    never changes a result on the inputs :func:`_log1p_neg` sees)."""
+    def wide(t):
+        return t.double() if isinstance(t, torch.Tensor) else t
+    return (wide(a) * wide(b) + wide(c)).float()
+
+
+# XLA's CPU log1p in float32 (jax 0.9.0): a Cephes rational approximation
+# for |x| < sqrt(2) - 1 and a Cephes-style logf of 1 + x elsewhere, with the
+# multiply-adds that LLVM contracts into fused multiply-adds.  Constants are
+# the float32 bit patterns of the compiled code.
+_LOG1P_SMALL = 0x3ED413CD  # sqrt(2) - 1
+_LOG1P_DEN = (0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A, 0x42707982)
+_LOG1P_NUM = (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76, 0x426473AD,
+              0x41A05101)
+_LOGF_SQRTHF = 0x3F3504F3
+_LOGF_P = ((0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A), (0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50),
+           (0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))
+_LOGF_Q1, _LOGF_Q2 = 0xB95E8083, 0x3F318000
+
+
+def _log1p_neg(u: torch.Tensor) -> torch.Tensor:
+    """``log1p(-u)`` for float32 ``u`` in [0, 1), rounded as XLA's CPU backend
+    rounds ``jnp.log1p(-u)``: equal on all 2**23 values a uniform draw takes."""
+    # |x| small: x + (-x**2 / 2 + x**3 * P(x) / Q(x)) at x = -u.
+    den = torch.ones_like(u)
+    for c in _LOG1P_DEN:
+        den = _fma(-den, u, _f32(c))
+    num = torch.full_like(u, _f32(_LOG1P_NUM[0]))
+    for c in _LOG1P_NUM[1:]:
+        num = _fma(-num, u, _f32(c))
+    u2 = u * u
+    small = (u2 * -0.5 + (u2 * -u) * (num / den)) - u
+    # elsewhere: log(1 - u), the mantissa in [sqrt(1/2), sqrt(2)) and the
+    # exponent e, as log(m) + e * ln 2 with ln 2 split in two.
+    bits = torch.clamp(1.0 - u, min=_f32(0x00800000)).view(torch.int32)
+    mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    below = mant < _f32(_LOGF_SQRTHF)
+    e = ((bits >> 23) & 0xFF).to(torch.float32) - 126.0 - below.to(torch.float32)
+    x = (mant - 1.0) + torch.where(below, mant, torch.zeros_like(mant))
+    z = x * x
+    x_cubed = z * x
+    p = [_fma(_fma(x, _f32(c0), _f32(c1)), x, _f32(c2)) for c0, c1, c2 in _LOGF_P]
+    y = _fma(_fma(_fma(p[0], x_cubed, p[1]), x_cubed, p[2]), x_cubed, e * _f32(_LOGF_Q1))
+    large = ((x - z * 0.5) + y) + e * _f32(_LOGF_Q2)
+    return torch.where(u.abs() < _f32(_LOG1P_SMALL), small, large)
+
+
 def exponential(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """float32 Exp(1) draws (``random.py::_exponential``)."""
-    return -torch.log1p(-uniform(keys, shape))
+    """float32 Exp(1) draws (``random.py::_exponential``): ``-log1p(-u)``
+    with ``log1p`` as XLA's CPU backend rounds it."""
+    return -_log1p_neg(uniform(keys, shape))
+
+
+@functools.lru_cache(maxsize=64)
+def _cumulative(p: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """float32 cumulative sum of ``p``, summed in order on the host and
+    copied to ``device`` once: later draws make no host-to-device copy, which
+    would make the host wait for the device."""
+    return torch.cumsum(torch.tensor(p, dtype=torch.float32), 0).to(device)
 
 
 def choice(keys: torch.Tensor, n: int, shape: Sequence[int],
@@ -162,9 +227,9 @@ def choice(keys: torch.Tensor, n: int, shape: Sequence[int],
     (``random.py::choice`` with ``p`` and ``replace=True``): a float32
     cumulative sum, ``p_cuml[-1] * (1 - u)``, then a left ``searchsorted``.
     Returns int64 indices of shape ``(..., *shape)``."""
-    p = torch.as_tensor(p, dtype=torch.float32)
-    if p.shape != (n,):
-        raise ValueError(f"p must have shape ({n},), got {tuple(p.shape)}")
-    p_cuml = torch.cumsum(p, 0).to(keys.device)  # host cumsum: sequential
+    p = tuple(float(x) for x in p)
+    if len(p) != n:
+        raise ValueError(f"p must have shape ({n},), got ({len(p)},)")
+    p_cuml = _cumulative(p, keys.device)
     r = p_cuml[-1] * (1.0 - uniform(keys, shape))
     return torch.searchsorted(p_cuml, r.reshape(-1)).reshape(r.shape)

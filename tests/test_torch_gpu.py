@@ -11,8 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from gymca_torch import rng
+from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
 from gymca_torch.envs.bulldozer import BulldozerCore
+from gymca_torch.ops import alexandridis_kernel as ak
 from gymca_torch.ops import windy_kernel as wk
+from gymca_torch.ops.alexandridis import AlexandridisCA
+from gymca_torch.ops.stencil import telescoped_box_coeffs
 
 EMPTY, TREE, FIRE = 0, 3, 25
 
@@ -129,3 +134,92 @@ def test_entry_points_default_to_the_card(cuda):
     assert core.device.type == "cuda"
     states = core.initial_state(torch.as_tensor(key_data(21, 2)))
     assert states.grid.device.type == "cuda"
+
+
+# --- K2/K3: the fused Alexandridis kernel ---------------------------------------------
+
+
+def alexandridis_case(seed, n, h, w, device):
+    """Kernel inputs and keywords at one lattice size, from numpy: fires,
+    dousing, terrain factors away from 1, ages at and around 1."""
+    r = np.random.default_rng(seed)
+    cells = r.random((n, h, w))
+    grid = np.where(cells < 0.1, 2, np.where(cells < 0.85, 1, 0)).astype(np.int8)
+    ca = AlexandridisCA(h)
+    x = dict(
+        grid=torch.tensor(grid),
+        fire_age=torch.tensor(r.choice(np.float32([0.5, 1.0, 1.5, 2.0, 60.0]), (n, h, w))),
+        dousing=torch.tensor((r.random((n, h, w)) < 0.05).astype(np.int8)),
+        vdf=torch.tensor(r.uniform(0.5, 3.0, (n, h, w)).astype(np.float32)).to(torch.bfloat16),
+        exp_slope=torch.tensor(r.uniform(0.8, 1.25, (n, 3, 3, h, w)).astype(np.float32)
+                               ).to(torch.bfloat16),
+        wind_rows=torch.tensor(r.uniform(0.5, 4.0, (n, 8)).astype(np.float32)),
+        seeds=torch.tensor(r.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.int64)),
+    )
+    kw = dict(empty=0, tree=1, fire=2, layer_coeffs=telescoped_box_coeffs(ca.burn_layer_weights),
+              dousing_border=ca._dousing_border, dousing_inner=ca._dousing_inner,
+              fire_age_min=ca.fire_age_min, fire_age_max=ca.fire_age_max)
+    return {k: v.to(device) for k, v in x.items()}, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w", [(8, 256, 256), (2, 512, 512), (1, 1024, 1024),
+                                   (5, 40, 50), (3, 24, 136)])
+def test_alexandridis_kernel_matches_plain_on_the_card(cuda, n, h, w):
+    x, kw = alexandridis_case(30, n, h, w, cuda)
+    before = ak.alexandridis_fused_step.launches
+    g, a = ak.alexandridis_fused_step(**x, **kw)
+    torch.cuda.synchronize()
+    assert ak.alexandridis_fused_step.launches == before + 1
+    pg, pa = ak.alexandridis_fused_step_plain(**x, **kw)
+    assert torch.equal(g, pg) and torch.equal(a, pa)
+    assert int(((g == 2) & (x["grid"] == 1)).sum()) > 0  # some trees ignited
+
+
+@pytest.mark.gpu
+def test_alexandridis_kernel_on_the_card_matches_the_cpu(cuda):
+    """The kernel's draws and float operations equal the plain version's on
+    the CPU too."""
+    x, kw = alexandridis_case(31, 4, 64, 96, "cpu")
+    g, a = ak.alexandridis_fused_step(**{k: v.to(cuda) for k, v in x.items()}, **kw)
+    pg, pa = ak.alexandridis_fused_step(**x, **kw)
+    assert torch.equal(g.cpu(), pg) and torch.equal(a.cpu(), pa)
+
+
+@pytest.mark.gpu
+def test_advanced_env_on_the_card_matches_the_cpu(cuda):
+    """The fused env on the card against the same env on the CPU with the
+    kernel's plain version, from one terrain, over 12 steps, leaf by leaf."""
+    n = 4
+    cpu = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(3, device="cpu"), num_envs=n,
+                                         use_fused_ca=True, device="cpu")
+    gpu = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(3, device="cpu"), num_envs=n,
+                                         terrain=cpu._terrain_ctx)
+    assert gpu.use_fused_ca and gpu.device.type == "cuda"
+    (c_rgb, c_ctx), c_info = cpu.reset()
+    (g_rgb, g_ctx), g_info = gpu.reset()
+    r = np.random.default_rng(32)
+    for i in range(12):
+        a = torch.tensor(np.stack([r.integers(0, 9, n), r.integers(0, 2, n),
+                                   np.zeros(n, int)], -1).astype(np.int32))
+        before = ak.alexandridis_fused_step.launches
+        cs = cpu.conditional_reset(cpu.stateless_step(a, (c_rgb, c_ctx), c_info), a)
+        gs = gpu.conditional_reset(gpu.stateless_step(a.to(cuda), (g_rgb, g_ctx), g_info),
+                                   a.to(cuda))
+        assert ak.alexandridis_fused_step.launches == before + 1
+        (c_rgb, c_ctx), c_info = cs[0], cs[4]
+        (g_rgb, g_ctx), g_info = gs[0], gs[4]
+        assert torch.equal(g_rgb.cpu(), c_rgb), i
+        assert torch.equal(gs[1].cpu(), cs[1]), i
+        for k, v in c_ctx["per_env_context"].items():
+            assert torch.equal(g_ctx["per_env_context"][k].cpu(), v), (i, k)
+        for k in ("position", "time"):
+            assert torch.equal(g_ctx[k].cpu(), c_ctx[k]), (i, k)
+
+
+@pytest.mark.gpu
+def test_advanced_env_defaults_to_the_card(cuda):
+    env = AdvancedForestFireBulldozerEnv(16, 128, key=rng.key(0), num_envs=2)
+    assert env.device.type == "cuda" and env.use_fused_ca
+    (rgb, _), _ = env.reset()
+    assert rgb.device.type == "cuda"

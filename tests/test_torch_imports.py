@@ -36,6 +36,8 @@ def test_port_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_SOURCES}
     assert "gymca_torch/envs/bulldozer.py" in names
     assert "gymca_torch/ops/windy_kernel.py" in names
+    assert "gymca_torch/ops/alexandridis_kernel.py" in names
+    assert "gymca_torch/envs/advanced.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -60,7 +62,9 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     "gymca_torch.core.operator", "gymca_torch.core.env", "gymca_torch.ops.stencil",
     "gymca_torch.ops.windy", "gymca_torch.ops.move_modify", "gymca_torch.ops.repeat_ca",
     "gymca_torch.ops.windy_kernel", "gymca_torch.envs.bulldozer", "gymca_torch.interop",
-    "gymca_torch._build", "gymca_torch.gym_env",
+    "gymca_torch._build", "gymca_torch.gym_env", "gymca_torch.ops.alexandridis",
+    "gymca_torch.ops.alexandridis_kernel", "gymca_torch.envs.terrain",
+    "gymca_torch.envs.extensions", "gymca_torch.envs.advanced",
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
@@ -75,3 +79,17 @@ def test_gym_adapters_load_on_demand():
     assert bulldozer.ForestFireBulldozerEnv is ForestFireBulldozerEnv
     with pytest.raises(AttributeError):
         env.NoSuchThing  # noqa: B018
+
+
+def test_advanced_env_asks_for_the_card_by_default():
+    """Without ``device=`` the Advanced env runs on the card, and raises
+    where there is none."""
+    import torch
+
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdvancedForestFireBulldozerEnv(16, 16, key=rng.key(0, device="cpu"), num_envs=1)

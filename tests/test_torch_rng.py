@@ -1,9 +1,8 @@
 """``gymca_torch.rng`` and the spec samplers against ``jax.random``.
 
 Key data is made with numpy from a seed and handed to both packages; every
-draw must be equal bit for bit (tolerance 0), except ``exponential``, whose
-``log1p`` rounds differently from XLA's by at most one unit in the last
-place (ROADMAP.md §3).
+draw must be equal bit for bit (tolerance 0), ``exponential`` included: the
+port reproduces the float32 ``log1p`` of XLA's CPU backend.
 """
 
 import jax
@@ -117,11 +116,21 @@ def test_choice_matches_jax(p):
 
 
 def test_exponential_within_one_ulp_of_jax():
+    """Exact: within zero units in the last place."""
     kd = key_data(8, 4)
     want = np.asarray(jax.vmap(lambda k: jax.random.exponential(
         k, (1000,), dtype=jnp.float32))(jax_keys(kd)))
-    np.testing.assert_array_max_ulp(rng.exponential(torch_keys(kd), (1000,)).numpy(),
-                                    want, maxulp=1)
+    np.testing.assert_array_equal(rng.exponential(torch_keys(kd), (1000,)).numpy(), want)
+
+
+def test_log1p_matches_xla_on_every_uniform_value():
+    """``-log1p(-u)`` on all 2**23 float32 values ``jax.random.uniform`` can
+    take (``k * 2**-23``), against ``jnp.log1p`` on the CPU, bit for bit."""
+    k = np.arange(2**23, dtype=np.uint32)
+    u = (k | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    want = np.asarray(jax.jit(lambda x: -jnp.log1p(-x))(jnp.asarray(u)))
+    got = (-rng._log1p_neg(torch.from_numpy(u))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 SPEC_PAIRS = [
