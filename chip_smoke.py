@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Two paths, each carried by a kernel written by hand in CUDA:
+Three paths, each carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
 * slice 2: ``AdvancedForestFireBulldozerEnv(256, 256, num_envs=64)``,
   ``stateless_step`` then ``conditional_reset``, carried by the fused
-  Alexandridis kernel (K2/K3, ``gymca_torch/csrc/alexandridis.cu``).
+  Alexandridis kernel (K2/K3, ``gymca_torch/csrc/alexandridis.cu``);
+* slice 3: the probes' entry points (``gymca_torch/probes/``), carried by
+  ``ca_variants.cu`` (four kernels), ``dma_floor.cu``, ``probe_floor.cu`` and
+  the Alexandridis kernel's ablation instances.
 
 Phases, each fatal on failure:
 
@@ -48,8 +51,22 @@ Phases, each fatal on failure:
    launches, its plain version; the host time of parts of the step; and a
    profiler trace of the step (device kernels per step, idle share, time
    by kernel);
-8. one JSON line describing every kernel, and one per path;
-9. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+8. slice 3: the four windy-CA formulations against their plain versions step
+   by step and against each other (tolerance 0) over 40 steps at (256, 256,
+   256) and 10 steps at (8, 64, 128), (4, 40, 52) and (4, 40, 50), where the
+   swar wrapper must raise; ``dma_floor`` against its plain version at (64,
+   256, 256) and (8, 512, 512); each Alexandridis ablation against its
+   plain version at (64, 256, 256) and (8, 512, 512), the shapes it is
+   timed at, and the default instance again on recorded main-path launches
+   (its ptxas line is checked at the build); then the entry points ``exp_ca_variants``, ``bench_fused_ca``
+   (64 x 256² and 8 x 512², 100 launches per repetition),
+   ``exp_counts_out``, ``exp_launch_floor``, ``exp_kernel_overhead`` and
+   ``exp_floor`` (100 launches per repetition; each checks ``probe_floor``
+   against its plain version at every launch configuration it times), the
+   counters zeroed before and read after; their times, the new kernels'
+   bounds and plain versions;
+9. one JSON line describing every kernel, and one per path;
+10. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -59,7 +76,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -80,6 +96,13 @@ ADV_ENVS, ADV_SIZE, ADV_STEPS = 64, 256, 200
 ADV_PARITY_ENVS, ADV_PARITY_SIZE, ADV_PARITY_STEPS = 4, 64, 20
 K3_ENVS, K3_SIZE, K3_STEPS = 8, 512, 20
 DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
+# Slice 3: the probes' entry points, their launches per repetition cut from
+# 1000 (bench_fused_ca, exp_floor, exp_counts_out) and 120 (the others).
+PROBE_S6_STEPS, PROBE_FLOOR_STEPS = 100, 100
+CA_VARIANT_LINES = {"banded": 39, "bool": 49, "fma": 94, "swar": 141}  # exp_ca_variants.py
+# The default Alexandridis instance's ptxas line, as it was built before the
+# ablation instances were added beside it.
+ALEXANDRIDIS_PTXAS = "Used 32 registers, used 1 barriers"
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3.  Integer ALU rate:
 # the 67 TFLOP/s float32 peak counts an FMA as two operations on 128 lanes
@@ -99,46 +122,6 @@ def log(*parts):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean time of ``fn()`` over ``reps`` calls between two CUDA events,
-    host launch time included."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_device_ms(fn, reps: int, kernel: str):
-    """Mean device duration of the kernel named ``kernel`` over ``reps``
-    calls of ``fn``, and the number of its launches seen, from the
-    profiler's CUDA kernel events: the kernel's own time on the card, with
-    no host time between launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not us:
-        fail(f"the profiler shows no device time for {kernel}")
-    return sum(us) / len(us) / 1e3, len(us)
 
 
 def k1_work(grid, params, edit_counts, k):
@@ -459,6 +442,222 @@ def alexandridis_work(x, kw):
     return moved, int_ops, flt_ops
 
 
+# --- slice 3: the probes --------------------------------------------------------------
+
+
+def int_err(a, b):
+    """Max |a - b| over two integer tensors of one shape, or inf when only
+    one of them is None."""
+    if a is None or b is None:
+        return 0 if a is None and b is None else float("inf")
+    return (a.to(torch.int64) - b.to(torch.int64)).abs().max().item() if a.numel() else 0
+
+
+def check_ca_variants(n, h, w, steps):
+    """The four S4 kernels against their plain versions, step by step, and
+    against each other after ``steps`` steps, from one seeded draw."""
+    from gymca_torch.probes.ca_variants_kernel import PLAIN, VARIANTS, ca_variant_step
+    from gymca_torch.probes.exp_ca_variants import make_inputs
+
+    grid0, weights = make_inputs(n, h, w, SEED, "cuda")
+    errs, finals = {}, {}
+    for v in VARIANTS:
+        if v == "swar" and w % 4:
+            try:
+                ca_variant_step(v, grid0.clone(), weights)
+            except ValueError:
+                errs[v] = None  # raises, as it must
+                continue
+            fail(f"the swar wrapper took W = {w}, which is not a multiple of 4")
+        gk, gp, err = grid0.clone(), grid0.clone(), 0
+        for _ in range(steps):
+            gk, ck = ca_variant_step(v, gk, weights)
+            gp, cp = PLAIN[v](gp, weights)
+            err = max(err, int_err(gk, gp), int_err(ck, cp))
+        errs[v], finals[v] = err, (gk, ck)
+    first = next(iter(finals.values()))
+    agree = all(torch.equal(g, first[0]) and torch.equal(c, first[1]) for g, c in finals.values())
+    fires = int((first[0] == 25).sum())
+    log(f"[probe] ca variants ({n}, {h}, {w}) x {steps} steps: max_abs_err against the plain "
+        f"versions " + ", ".join(f"{v} {'raises' if e is None else e}" for v, e in errs.items())
+        + f" (tolerance 0); the kernels agree with each other: {agree}; {fires} fires at the end")
+    if any(e for e in errs.values()) or not agree:
+        fail(f"the S4 kernels disagree at ({n}, {h}, {w})")
+    return {v: e for v, e in errs.items() if e is not None}
+
+
+def check_dma_floor(x):
+    from gymca_torch.probes.dma_floor_kernel import dma_floor, dma_floor_plain
+
+    args = [x[k] for k in ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows",
+                           "seeds")]
+    got, want = dma_floor(*args), dma_floor_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int_err(got[0], want[0]), int_err(got[2], want[2]),
+              (got[1] - want[1]).abs().max().item())
+    log(f"[probe] dma_floor {tuple(x['grid'].shape)}: out_grid, out_age and the fold word "
+        f"against the plain version, max_abs_err {err} (tolerance 0)")
+    if err != 0:
+        fail(f"dma_floor disagrees with its plain version at {tuple(x['grid'].shape)}")
+    return err
+
+
+def probe_phase(card, gen, adv_recorded):
+    """Slice 3: every probe kernel against its plain version, the Alexandridis
+    ablations, then the probes' entry points driven with the launch counters
+    zeroed before and read after, and each new kernel's times.  Returns the
+    new kernels' entries of the ``kernels`` line."""
+    from gymca_torch.ops.alexandridis_kernel import (
+        ABLATIONS,
+        alexandridis_fused_step,
+        alexandridis_fused_step_plain,
+    )
+    from gymca_torch.probes import (
+        bench_fused_ca,
+        exp_ca_variants,
+        exp_counts_out,
+        exp_floor,
+        exp_kernel_overhead,
+        exp_launch_floor,
+    )
+    from gymca_torch.probes.ca_variants_kernel import PLAIN, VARIANTS, ca_variant_step
+    from gymca_torch.probes.dma_floor_kernel import dma_floor, dma_floor_plain, moved_bytes
+    from gymca_torch.probes.floor_kernel import moved_bytes as floor_bytes
+    from gymca_torch.probes.floor_kernel import probe_floor, probe_floor_plain
+    from gymca_torch.probes.timing import cuda_ms
+
+    t0 = time.perf_counter()
+
+    # Kernels against their plain versions (launches not counted).
+    ca_err = dict.fromkeys(VARIANTS, 0)
+    for n, h, w, steps in ((exp_ca_variants.N, exp_ca_variants.H, exp_ca_variants.W,
+                            exp_ca_variants.STEPS), (8, 64, 128, 10), (4, 40, 52, 10),
+                           (4, 40, 50, 10)):
+        for v, e in check_ca_variants(n, h, w, steps).items():
+            ca_err[v] = max(ca_err[v], e)
+    dma_x = {size: alexandridis_inputs(n, size, size, gen)[0]
+             for n, size in ((ADV_ENVS, ADV_SIZE), (K3_ENVS, K3_SIZE))}
+    dma_err = max(check_dma_floor(x) for x in dma_x.values())
+    # Each ablation at both shapes the probes' path times it at: 64 x 256²
+    # (radius 6, one tile row) and 8 x 512² (radius 7, tiled).
+    for n, size in ((ADV_ENVS, ADV_SIZE), (K3_ENVS, K3_SIZE)):
+        x, kw = alexandridis_inputs(n, size, size, gen)
+        for ablate in ABLATIONS[1:]:
+            g_k, a_k = alexandridis_fused_step(**x, **kw, ablate=ablate)
+            g_p, a_p = alexandridis_fused_step_plain(**x, **kw, ablate=ablate)
+            torch.cuda.synchronize()
+            err = max(int_err(g_k, g_p), (a_k - a_p).abs().max().item())
+            if torch.isnan(a_k).any() or not torch.equal(torch.isnan(a_k), torch.isnan(a_p)):
+                err = float("inf")
+            ignited = int(((g_k == kw["fire"]) & (x["grid"] == kw["tree"])).sum())
+            log(f"[probe] alexandridis ablate={ablate!r} {tuple(x['grid'].shape)} radius "
+                f"{len(kw['layer_coeffs'])}: {ignited} trees ignited, max_abs_err {err} "
+                f"(tolerance 0, grid and age)")
+            if err != 0:
+                fail(f"the alexandridis {ablate} instance disagrees with its plain version at "
+                     f"{tuple(x['grid'].shape)}")
+    rec_err = max(alexandridis_vs_plain(rx, rkw)[0] for rx, rkw in adv_recorded[:3])
+    log(f"[probe] alexandridis default instance on 3 recorded main-path launches: "
+        f"max_abs_err {rec_err} (tolerance 0)")
+    if rec_err != 0:
+        fail("the default alexandridis instance disagrees with its plain version")
+
+    # The probes' path, through their entry points, counters zeroed just before.
+    torch.cuda.synchronize()
+    for v in VARIANTS:
+        ca_variant_step.launches[v] = 0
+    dma_floor.launches = probe_floor.launches = alexandridis_fused_step.launches = 0
+    ca_rows = {r["variant"]: r for r in exp_ca_variants.run("cuda")}
+    bench = bench_fused_ca.run("cuda", size=ADV_SIZE, envs=ADV_ENVS, steps=PROBE_S6_STEPS)
+    bench_tiled = bench_fused_ca.run("cuda", size=K3_SIZE, envs=K3_ENVS, steps=PROBE_S6_STEPS)
+    floor_rows = {}  # each entry point checks every launch configuration it times
+    for mod in (exp_counts_out, exp_launch_floor, exp_kernel_overhead, exp_floor):
+        floor_rows.update((r["label"], r) for r in mod.run("cuda", steps=PROBE_FLOOR_STEPS))
+    torch.cuda.synchronize()
+    launches = {**{f"ca_variant_{v}": ca_variant_step.launches[v] for v in VARIANTS},
+                "dma_floor": dma_floor.launches, "probe_floor": probe_floor.launches,
+                "alexandridis (4 instances)": alexandridis_fused_step.launches}
+    log(f"[probe] entry points exp_ca_variants, bench_fused_ca at {ADV_ENVS} x {ADV_SIZE}² and "
+        f"{K3_ENVS} x {K3_SIZE}² ({PROBE_S6_STEPS} launches per repetition), exp_counts_out, "
+        f"exp_launch_floor, exp_kernel_overhead, exp_floor ({PROBE_FLOOR_STEPS} launches per "
+        f"repetition): launches {launches}")
+    if not all(launches.values()):
+        fail(f"a probe kernel was never launched on the probes' path: {launches}")
+
+    for r in ca_rows.values():
+        log(f"[time] [{card}] ca_{r['variant']}: {r['device_us']} us/step of device time "
+            f"({r['device_us'] * 1e3 / exp_ca_variants.N} ns/grid), host {r['host_us']} "
+            f"us/step, {exp_ca_variants.N} x {exp_ca_variants.H}x{exp_ca_variants.W}, "
+            f"{exp_ca_variants.STEPS} steps, 3 repetitions")
+    for label, b in ((f"{ADV_ENVS} x {ADV_SIZE}²", bench), (f"{K3_ENVS} x {K3_SIZE}²",
+                                                             bench_tiled)):
+        log(f"[time] [{card}] bench_fused_ca {label} (radius {b['radius']}): " + "; ".join(
+            f"{m} {b[f'{m}_us']} us/launch device, {b[f'{m}_host_us']} host"
+            for m in bench_fused_ca.MODES))
+    floor_err = max(r["max_abs_err"] for r in floor_rows.values())
+    combos = sorted({(r["table_w"], r["counts_w"], r["staged"]) for r in floor_rows.values()})
+    log(f"[probe] probe_floor at the {len(floor_rows)} launch configurations of the entry "
+        f"points (table_w, counts_w, staged: {combos}), each against its plain version by the "
+        f"entry point: max_abs_err {floor_err} (tolerance 0)")
+    if floor_err != 0:
+        fail("probe_floor disagrees with its plain version")
+    for label, r in floor_rows.items():
+        log(f"[time] [{card}] probe_floor {label}: {r['device_us']} us/launch device, "
+            f"{r['host_us']} us/launch host (N={r['n']}, {r['envs_per_block']} envs/block, "
+            f"table {r['table_w']}, counts {r['counts_w']}, staged {r['staged']}, grid "
+            f"{r['grid']})")
+
+    # The kernels line: bounds from this run's inputs, plain versions timed.
+    entries = []
+    grid0, weights = exp_ca_variants.make_inputs(exp_ca_variants.N, exp_ca_variants.H,
+                                                 exp_ca_variants.W, SEED, "cuda")
+    n_cells = grid0.numel()
+    ca_bytes = 2 * n_cells + exp_ca_variants.N * (32 + 8)
+    ca_bound = max((ca_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                   (n_cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3, "operations"))
+    for v in VARIANTS:
+        scratch = grid0.clone()
+        entries.append(dict(
+            name=f"ca_variant_{v}", route="cuda", source="gymca_torch/csrc/ca_variants.cu",
+            replaces=f"scripts/exp_ca_variants.py:{CA_VARIANT_LINES[v]}",
+            launches=ca_variant_step.launches[v], max_abs_err=ca_err[v],
+            ms=ca_rows[v]["device_us"] / 1e3,
+            plain_ms=cuda_ms(lambda: PLAIN[v](scratch, weights), 3),
+            bound_ms=ca_bound[0], bound_by=ca_bound[1], library_ms=None))
+    xd = dma_x[ADV_SIZE]
+    dma_args = [xd[k] for k in ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows",
+                                "seeds")]
+    entries.append(dict(
+        name="dma_floor", route="cuda", source="gymca_torch/csrc/dma_floor.cu",
+        replaces="scripts/bench_fused_ca.py:118", launches=dma_floor.launches,
+        max_abs_err=dma_err, ms=bench["dma-floor_us"] / 1e3,
+        plain_ms=cuda_ms(lambda: dma_floor_plain(*dma_args), 3),
+        bound_ms=moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None))
+    fv = exp_floor.VARIANTS[-2]  # F: 16-wide table, 4 counts, 32 blocks
+    table = torch.randint(0, 100, (fv.n, fv.table_w), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    entries.append(dict(
+        name="probe_floor", route="cuda", source="gymca_torch/csrc/probe_floor.cu",
+        replaces="scripts/exp_floor.py:42", launches=probe_floor.launches,
+        max_abs_err=floor_err, ms=floor_rows[fv.label]["device_us"] / 1e3,
+        plain_ms=cuda_ms(lambda: probe_floor_plain(fv.n, table, counts_w=fv.counts_w), 3),
+        bound_ms=floor_bytes(fv.n, fv.table_w, fv.counts_w) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None))
+    log(f"[time] [{card}] probe kernels' bounds: ca variants {ca_bytes / 1e6} MB/step at "
+        f"3.35 TB/s = {ca_bound[0] * 1e3} us ({ca_bound[1]}); dma_floor "
+        f"{moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / 1e6} MB/launch = "
+        f"{entries[-2]['bound_ms'] * 1e3} us at {ADV_ENVS} x {ADV_SIZE}², "
+        f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / 1e6} MB = "
+        f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / HBM_BYTES_PER_S * 1e6} us at {K3_ENVS} x "
+        f"{K3_SIZE}²; probe_floor (F) {floor_bytes(fv.n, fv.table_w, fv.counts_w) / 1e6} MB = "
+        f"{entries[-1]['bound_ms'] * 1e3} us by bytes, far under its launch floor; plain "
+        f"versions (CUDA events): " + ", ".join(f"{e['name']} {e['plain_ms'] * 1e3} us"
+                                                 for e in entries))
+    log(f"[probe] phase took {time.perf_counter() - t0:.1f}s")
+    return entries
+
+
 # --- profile -----------------------------------------------------------------------
 
 
@@ -525,6 +724,8 @@ def main() -> int:
         alexandridis_fused_step_plain,
     )
     from gymca_torch.ops.windy_kernel import windy_fused_step, windy_fused_step_plain
+    from gymca_torch.probes.timing import card as nvidia_smi_line
+    from gymca_torch.probes.timing import cuda_ms, host_us, time_launches
 
     # 1. device
     smi = nvidia_smi_line()
@@ -543,6 +744,11 @@ def main() -> int:
     for b in built.values():
         for line in b.ptxas_report():
             log(f"[build] {b.name}: {line}")
+    default = [lines for name, lines in built["alexandridis"].ptxas_entries().items()
+               if "alexandridis_kernelILi0E" in name]
+    if (len(default) != 1 or not any(ALEXANDRIDIS_PTXAS in ln for ln in default[0])
+            or not any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in default[0])):
+        fail(f"the default alexandridis instance's ptxas report changed: {default}")
 
     # 3-4. kernel against plain
     gen = torch.Generator(device="cuda")
@@ -632,28 +838,30 @@ def main() -> int:
         for w_, p_, e_, c_ in kin:
             windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
 
-    kernel_pass()  # warm
-    kernel_ms, kernel_n = kernel_device_ms(kernel_pass, KERNEL_REPEATS,
-                                           "windy_sparse_kernel")
+    k1_time = time_launches(lambda: [kernel_pass() for _ in range(KERNEL_REPEATS)],
+                            KERNEL_REPEATS * len(kin), "windy_sparse_kernel")
+    kernel_ms = k1_time["device_us"] / 1e3
     work = [k1_work(grid, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
     bytes_moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
     bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     noop = torch.zeros_like(kin[0][1])
-    noop_ms, noop_n = kernel_device_ms(
-        lambda: windy_fused_step(grid, kin[0][0], noop, kin[0][2], kin[0][3],
-                                 empty=0, tree=3, fire=25), 100, "windy_sparse_kernel")
+    noop_time = time_launches(
+        lambda: [windy_fused_step(grid, kin[0][0], noop, kin[0][2], kin[0][3], empty=0, tree=3,
+                                  fire=25) for _ in range(100)], 100, "windy_sparse_kernel")
     plain_grid = grid.clone()
     plain_ms = cuda_ms(lambda: windy_fused_step_plain(plain_grid, *kin[0], empty=0, tree=3,
                                                       fire=25), 3)
     log(f"[time] [{card}] windy_sparse kernel: {kernel_ms * 1e3} us/launch of device "
-        f"time over {kernel_n} launches cycling {len(kin)} recorded main-path launches "
+        f"time, median of 3 sessions of {k1_time['launches']} launches (events kept "
+        f"{k1_time['seen']}) cycling {len(kin)} recorded main-path launches "
         f"({n_ca} CA envs with {n_edits} replayed edits and {n_mod} modify-only envs per "
         f"launch of {N_ENVS}); bound {bound_ms * 1e3} us by {bound_by} (bytes: "
         f"{bytes_moved / 1e6} MB/launch at 3.35 TB/s = {bytes_ms * 1e3} us; operations: "
         f"{OPS_PER_CELL}/cell at 16.75 T int32 ops/s = {ops_ms * 1e3} us); plain version "
-        f"{plain_ms * 1e3} us/call (CUDA events); every env a no-op {noop_ms * 1e3} "
-        f"us/launch of device time over {noop_n} launches")
+        f"{plain_ms * 1e3} us/call (CUDA events); every env a no-op {noop_time['device_us']} "
+        f"us/launch of device time, median of 3 sessions of 100 launches (events kept "
+        f"{noop_time['seen']})")
 
     s = reset_states.clone()
     torch.cuda.synchronize()
@@ -793,9 +1001,9 @@ def main() -> int:
         for x, kw in adv_recorded:
             alexandridis_fused_step(**x, **kw)
 
-    adv_kernel_pass()  # warm
-    adv_kernel_ms, adv_kernel_n = kernel_device_ms(adv_kernel_pass, KERNEL_REPEATS,
-                                                   "alexandridis_kernel")
+    adv_time = time_launches(lambda: [adv_kernel_pass() for _ in range(KERNEL_REPEATS)],
+                             KERNEL_REPEATS * len(adv_recorded), "alexandridis_kernel")
+    adv_kernel_ms = adv_time["device_us"] / 1e3
     work = [alexandridis_work(x, kw) for x, kw in adv_recorded]
     a_bytes, a_int, a_flt = (sum(v) / len(work) for v in zip(*work))
     a_bytes_ms = a_bytes / HBM_BYTES_PER_S * 1e3
@@ -805,8 +1013,9 @@ def main() -> int:
     x0, kw0 = adv_recorded[0]
     adv_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**x0, **kw0), 3)
     log(f"[time] [{card}] alexandridis kernel: {adv_kernel_ms * 1e3} us/launch of device "
-        f"time over {adv_kernel_n} launches cycling {len(adv_recorded)} recorded main-path "
-        f"launches ({ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}); bound {adv_bound_ms * 1e3} us by "
+        f"time, median of 3 sessions of {adv_time['launches']} launches (events kept "
+        f"{adv_time['seen']}) cycling {len(adv_recorded)} recorded main-path launches "
+        f"({ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}); bound {adv_bound_ms * 1e3} us by "
         f"{adv_bound_by} (bytes: {a_bytes / 1e6} MB/launch at 3.35 TB/s = {a_bytes_ms * 1e3} "
         f"us; operations: {a_int / 1e6} M int32 at 16.75 T/s = {a_int_ms * 1e3} us and "
         f"{a_flt / 1e6} M float32 at 67 T/s = {a_flt_ms * 1e3} us, on separate pipes); "
@@ -816,8 +1025,9 @@ def main() -> int:
         for x, kw in k3_recorded:
             alexandridis_fused_step(**x, **kw)
 
-    k3_pass()  # warm
-    k3_ms, k3_n = kernel_device_ms(k3_pass, KERNEL_REPEATS, "alexandridis_kernel")
+    k3_time = time_launches(lambda: [k3_pass() for _ in range(KERNEL_REPEATS)],
+                            KERNEL_REPEATS * len(k3_recorded), "alexandridis_kernel")
+    k3_ms = k3_time["device_us"] / 1e3
     k3_bytes, k3_int, k3_flt = alexandridis_work(*k3_recorded[0])
     k3_bound_ms = max(k3_bytes / HBM_BYTES_PER_S, k3_int / INT32_OPS_PER_S,
                       k3_flt / FP32_OPS_PER_S) * 1e3
@@ -825,18 +1035,11 @@ def main() -> int:
                                                                 **k3_recorded[0][1]), 3)
     log(f"[time] [{card}] alexandridis kernel at {K3_ENVS} x {K3_SIZE}x{K3_SIZE} (radius "
         f"{len(k3_recorded[0][1]['layer_coeffs'])}): {k3_ms * 1e3} us/launch of device time "
-        f"over {k3_n} launches of {len(k3_recorded)} recorded ones; bound {k3_bound_ms * 1e3} "
+        f"median of 3 sessions of {k3_time['launches']} launches (events kept "
+        f"{k3_time['seen']}) cycling {len(k3_recorded)} recorded ones; bound {k3_bound_ms * 1e3} "
         f"us ({k3_bytes / 1e6} MB at 3.35 TB/s = {k3_bytes / HBM_BYTES_PER_S * 1e6} us; "
         f"{k3_int / 1e6} M int32 at 16.75 T/s = {k3_int / INT32_OPS_PER_S * 1e6} us); plain "
         f"version {k3_plain_ms * 1e3} us/call (CUDA events)")
-
-    def host_us(fn, reps=20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e6
 
     step_tuple = env.stateless_step(adv_acts[0], reset_obs, reset_info)
     fresh_keys = rng.fold_in(reset_obs[1]["per_env_context"]["key"], 7)
@@ -853,7 +1056,10 @@ def main() -> int:
         lambda: adv_run(env, reset_obs, reset_info, adv_acts[:PROFILE_STEPS]), PROFILE_STEPS,
         f"Advanced stateless_step + conditional_reset {ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}", card)
 
-    # 8-9. result lines
+    # 8. slice 3: the probes
+    probe_kernels = probe_phase(card, gen, adv_recorded)
+
+    # 9-10. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -878,7 +1084,7 @@ def main() -> int:
         "bound_ms": adv_bound_ms,
         "bound_by": adv_bound_by,
         "library_ms": None,
-    }]
+    }] + probe_kernels
     log(json.dumps({"kernels": kernels}))
     if prof is not None:
         log(json.dumps({"step": {"env_steps_per_sec": best[0], **prof}}))

@@ -21,7 +21,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "Built", "build", "load", "check_operand"]
 
@@ -43,11 +43,22 @@ class Built:
     seconds: Optional[float]  # None when an earlier build was reused
     log: str  # nvcc's output, with the -Xptxas -v report
 
+    def ptxas_entries(self) -> Dict[str, List[str]]:
+        """The ``-Xptxas -v`` lines of each kernel instance, by its mangled
+        name: registers, barriers, shared memory, stack and spills."""
+        entries: Dict[str, List[str]] = {}
+        lines = None
+        for ln in self.log.splitlines():
+            if "Compiling entry function" in ln:
+                lines = entries.setdefault(ln.split("'")[1], [])
+            elif lines is not None and ("registers" in ln or "spill" in ln):
+                lines.append(ln.strip())
+        return entries
+
     def ptxas_report(self):
-        """The ``-Xptxas -v`` lines: registers, barriers, shared memory,
-        stack and spills of each kernel instance."""
-        return [ln.strip() for ln in self.log.splitlines()
-                if "registers" in ln or "spill" in ln]
+        """One line per kernel instance: its mangled name and its ptxas
+        lines."""
+        return [f"{name}: {' | '.join(lines)}" for name, lines in self.ptxas_entries().items()]
 
 
 def _nvcc() -> str:

@@ -47,6 +47,16 @@
 //   * age, vdf and exp_slope are read once, lane-contiguous across a warp.
 // Simple first: no TMA, no vector loads, no tensor cores (the TPU kernel's
 // banded matmuls were a TPU schedule for box sums, not a matrix product).
+//
+// Ablations, the counterpart of the TPU kernel's `ablate` (profiling only,
+// outputs wrong by construction; the env never asks for them), each a
+// compile-time instance that skips one phase so the phase's time shows:
+//   kBoxes   heat = 8 * fire and dousing = the dousing mask of the cell
+//            itself: no summed-area tables;
+//   kIgnite  no_ignite = max(1 - 0.1 * base, 0): no exp_slope reads, no
+//            8-direction product;
+//   kPrng    u = 0.5 and new ages = age_min: no threefry.
+// Instance kNone is the step itself.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +67,8 @@ constexpr int kTileH = 32;
 constexpr int kTileW = 64;
 constexpr int kThreads = 256;
 constexpr int kMaxRadius = 32;
+
+enum { kNone = 0, kBoxes = 1, kIgnite = 2, kPrng = 3 };
 
 // Moore offsets in NEIGHBOR_OFFSETS order.
 __constant__ int kDr[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
@@ -99,6 +111,7 @@ __device__ __forceinline__ float bf16_to_float(uint16_t b) {
   return __uint_as_float(uint32_t(b) << 16);
 }
 
+template <int kAblate>
 __global__ void __launch_bounds__(kThreads)
 alexandridis_kernel(const int8_t* __restrict__ grid, const float* __restrict__ age,
                     const int8_t* __restrict__ dous, const uint16_t* __restrict__ vdf,
@@ -119,13 +132,15 @@ alexandridis_kernel(const int8_t* __restrict__ grid, const float* __restrict__ a
   const int8_t* d = dous + (size_t)e * plane;
 
   // 1. Stage the masks of the tile and its halo; zero outside the grid.
-  for (int i = threadIdx.x; i < sw; i += kThreads) {
-    sat_f[i] = 0;
-    sat_d[i] = 0;
-  }
-  for (int i = threadIdx.x; i < eh; i += kThreads) {
-    sat_f[(i + 1) * sw] = 0;
-    sat_d[(i + 1) * sw] = 0;
+  if constexpr (kAblate != kBoxes) {
+    for (int i = threadIdx.x; i < sw; i += kThreads) {
+      sat_f[i] = 0;
+      sat_d[i] = 0;
+    }
+    for (int i = threadIdx.x; i < eh; i += kThreads) {
+      sat_f[(i + 1) * sw] = 0;
+      sat_d[(i + 1) * sw] = 0;
+    }
   }
   for (int idx = threadIdx.x; idx < eh * ew; idx += kThreads) {
     const int i = idx / ew, j = idx - i * ew;
@@ -134,33 +149,37 @@ alexandridis_kernel(const int8_t* __restrict__ grid, const float* __restrict__ a
     if (gr >= 0 && gr < h && gc >= 0 && gc < w) {
       const size_t at = (size_t)gr * w + gc;
       f = g[at] == p.fire;
-      dd = d[at] > 0;
+      if constexpr (kAblate != kBoxes) dd = d[at] > 0;
     }
     fire_m[idx] = int8_t(f);
-    sat_f[(i + 1) * sw + j + 1] = f;
-    sat_d[(i + 1) * sw + j + 1] = dd;
+    if constexpr (kAblate != kBoxes) {
+      sat_f[(i + 1) * sw + j + 1] = f;
+      sat_d[(i + 1) * sw + j + 1] = dd;
+    }
   }
   __syncthreads();
 
   // 2. Summed-area tables: running sums along rows, then down columns.
-  for (int t = threadIdx.x; t < 2 * eh; t += kThreads) {
-    int* row = (t < eh ? sat_f : sat_d) + (t % eh + 1) * sw;
-    int acc = 0;
-    for (int j = 1; j <= ew; ++j) {
-      acc += row[j];
-      row[j] = acc;
+  if constexpr (kAblate != kBoxes) {
+    for (int t = threadIdx.x; t < 2 * eh; t += kThreads) {
+      int* row = (t < eh ? sat_f : sat_d) + (t % eh + 1) * sw;
+      int acc = 0;
+      for (int j = 1; j <= ew; ++j) {
+        acc += row[j];
+        row[j] = acc;
+      }
     }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * ew; t += kThreads) {
-    int* col = (t < ew ? sat_f : sat_d) + t % ew + 1;
-    int acc = 0;
-    for (int i = 1; i <= eh; ++i) {
-      acc += col[i * sw];
-      col[i * sw] = acc;
+    __syncthreads();
+    for (int t = threadIdx.x; t < 2 * ew; t += kThreads) {
+      int* col = (t < ew ? sat_f : sat_d) + t % ew + 1;
+      int acc = 0;
+      for (int i = 1; i <= eh; ++i) {
+        acc += col[i * sw];
+        col[i * sw] = acc;
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // 3. The rule, one cell per thread at a time, lanes along a row.
   float wd[8];
@@ -176,37 +195,51 @@ alexandridis_kernel(const int8_t* __restrict__ grid, const float* __restrict__ a
 #define BOX(S, r)                                                                 \
   ((S)[(ei + (r) + 1) * sw + ej + (r) + 1] - (S)[(ei - (r)) * sw + ej + (r) + 1] - \
    (S)[(ei + (r) + 1) * sw + ej - (r)] + (S)[(ei - (r)) * sw + ej - (r)])
-    float heat = 0.0f;
-    for (int r = 1; r <= p.radius; ++r)
-      heat = __fadd_rn(heat, __fmul_rn(p.coeff[r - 1], float(BOX(sat_f, r))));
-    const float dousing = __fadd_rn(__fmul_rn(p.dous_c1, float(BOX(sat_d, 1))),
-                                    __fmul_rn(p.dous_c2, float(BOX(sat_d, 2))));
-#undef BOX
     const size_t at = (size_t)gr * w + gc;
     const size_t cell_at = (size_t)e * plane + at;
+    float heat = 0.0f, dousing;
+    if constexpr (kAblate == kBoxes) {
+      heat = fire_m[ei * ew + ej] ? 8.0f : 0.0f;
+      dousing = d[at] > 0 ? 1.0f : 0.0f;
+    } else {
+      for (int r = 1; r <= p.radius; ++r)
+        heat = __fadd_rn(heat, __fmul_rn(p.coeff[r - 1], float(BOX(sat_f, r))));
+      dousing = __fadd_rn(__fmul_rn(p.dous_c1, float(BOX(sat_d, 1))),
+                          __fmul_rn(p.dous_c2, float(BOX(sat_d, 2))));
+    }
+#undef BOX
     const float base = __fmul_rn(__fsub_rn(heat, dousing), bf16_to_float(vdf[cell_at]));
 
     float no_ignite = 1.0f;
+    if constexpr (kAblate == kIgnite) {
+      no_ignite = fmaxf(__fsub_rn(1.0f, __fmul_rn(base, 0.1f)), 0.0f);
+    } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int dr = kDr[k], dc = kDc[k];
-      const float es =
-          bf16_to_float(exp_slope[((size_t)e * 9 + (1 + dr) * 3 + (1 + dc)) * plane + at]);
-      const float pd = __fmul_rn(__fmul_rn(base, wd[k]), es);
-      const float term = fire_m[(ei + dr) * ew + ej + dc] ? __fsub_rn(1.0f, pd) : 1.0f;
-      no_ignite = __fmul_rn(no_ignite, fmaxf(term, 0.0f));
+      for (int k = 0; k < 8; ++k) {
+        const int dr = kDr[k], dc = kDc[k];
+        const float es =
+            bf16_to_float(exp_slope[((size_t)e * 9 + (1 + dr) * 3 + (1 + dc)) * plane + at]);
+        const float pd = __fmul_rn(__fmul_rn(base, wd[k]), es);
+        const float term = fire_m[(ei + dr) * ew + ej + dc] ? __fsub_rn(1.0f, pd) : 1.0f;
+        no_ignite = __fmul_rn(no_ignite, fmaxf(term, 0.0f));
+      }
     }
 
-    uint32_t b1, b2;
-    threefry2x32(k0, k1, 0u, uint32_t(at), b1, b2);
-    const float u = __fmul_rn(__uint2float_rn(b1 >> 8), 5.9604644775390625e-8f);  // 2^-24
+    uint32_t b1 = 0, b2 = 0;
+    float u = 0.5f;
+    if constexpr (kAblate != kPrng) {
+      threefry2x32(k0, k1, 0u, uint32_t(at), b1, b2);
+      u = __fmul_rn(__uint2float_rn(b1 >> 8), 5.9604644775390625e-8f);  // 2^-24
+    }
     const bool ignite = u < __fsub_rn(1.0f, no_ignite);
 
     const int gv = g[at];
     const float a = age[cell_at];
     const bool burning = gv == p.fire;
     const int nv = (gv == p.tree && ignite) ? p.fire : ((burning && a <= 1.0f) ? p.empty : gv);
-    float na = (nv == p.fire && !burning) ? float(p.age_min + int(b2 % uint32_t(p.age_span))) : a;
+    float na = (nv == p.fire && !burning)
+                   ? float(p.age_min + (kAblate == kPrng ? 0 : int(b2 % uint32_t(p.age_span))))
+                   : a;
     if (burning) na = __fsub_rn(na, 1.0f);
     out_grid[cell_at] = int8_t(nv);
     out_age[cell_at] = na;
@@ -227,14 +260,17 @@ int shared_bytes(int halo) {
 // vdf: (n, h, w) bfloat16 and exp_slope (n, 3, 3, h, w) bfloat16, as raw
 // 16-bit words; wind (n, 8) float32; seeds (n, 2) uint32; out_grid (n, h, w)
 // int8; all contiguous on the device.  coeff: `radius` host float32 values.
+// ablate: kNone for the step, else the ablation instance to launch.
 extern "C" int alexandridis_launch(const void* grid, const void* age, const void* dous,
                                    const void* vdf, const void* exp_slope, const void* wind,
                                    const void* seeds, void* out_grid, void* out_age, int n,
                                    int h, int w, const float* coeff, int radius,
                                    float dous_c1, float dous_c2, int empty, int tree,
-                                   int fire, int age_min, int age_span, void* stream) {
+                                   int fire, int age_min, int age_span, int ablate,
+                                   void* stream) {
   if (n <= 0) return 0;
-  if (radius < 1 || radius > kMaxRadius || age_span < 1 || n > 65535)
+  if (radius < 1 || radius > kMaxRadius || age_span < 1 || n > 65535 || ablate < kNone ||
+      ablate > kPrng)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   for (int r = 0; r < kMaxRadius; ++r) p.coeff[r] = r < radius ? coeff[r] : 0.0f;
@@ -247,14 +283,18 @@ extern "C" int alexandridis_launch(const void* grid, const void* age, const void
   p.fire = fire;
   p.age_min = age_min;
   p.age_span = age_span;
+  const auto kernel = ablate == kBoxes    ? alexandridis_kernel<kBoxes>
+                      : ablate == kIgnite ? alexandridis_kernel<kIgnite>
+                      : ablate == kPrng   ? alexandridis_kernel<kPrng>
+                                          : alexandridis_kernel<kNone>;
   const int smem = shared_bytes(p.halo);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        alexandridis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 blocks((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
-  alexandridis_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(grid), static_cast<const float*>(age),
       static_cast<const int8_t*>(dous), static_cast<const uint16_t*>(vdf),
       static_cast<const uint16_t*>(exp_slope), static_cast<const float*>(wind),

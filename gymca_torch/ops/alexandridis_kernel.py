@@ -17,6 +17,14 @@ The function is split in plain pieces:
   ``1 - prod_d max(1 - p_d * fire_d, 0)`` of every cell;
 * :func:`alexandridis_rule` — the cell rule, given the draws.
 
+``ablate`` names a phase to skip, the counterpart of the TPU kernel's
+profiling aid (``scripts/bench_fused_ca.py``; outputs are wrong by
+construction and the env never passes it): ``"boxes"`` takes heat = 8·fire
+and dousing = the cell's dousing mask, ``"ignite"`` takes no_ignite =
+max(1 − 0.1·base, 0), ``"prng"`` takes u = 0.5 and new ages =
+``fire_age_min``.  The kernel has one compile-time instance per ablation;
+the default instance is the step itself.
+
 :func:`alexandridis_fused_step_plain` is the rule applied to the draws, with
 every float operation in the kernel's order, so kernel and plain version
 agree bit for bit.  :func:`alexandridis_fused_step` takes the plain version
@@ -38,11 +46,12 @@ from gymca_torch.ops.stencil import NEIGHBOR_OFFSETS, multi_box_sums, shift
 
 __all__ = ["alexandridis_fused_step", "alexandridis_fused_step_plain",
            "alexandridis_draws", "alexandridis_ignition", "alexandridis_rule",
-           "MAX_RADIUS"]
+           "MAX_RADIUS", "ABLATIONS"]
 
 MAX_RADIUS = 32  # kMaxRadius in the source
 _MAX_ENVS = 65535  # the launch's grid z extent
 _INV_2_24 = 2.0 ** -24
+ABLATIONS = ("", "boxes", "ignite", "prng")  # index = the kernel's instance
 
 
 def alexandridis_draws(seeds: torch.Tensor, h: int, w: int):
@@ -58,21 +67,27 @@ def alexandridis_draws(seeds: torch.Tensor, h: int, w: int):
 
 def alexandridis_ignition(grid, dousing, vdf, exp_slope, wind_rows, *, fire: int,
                           layer_coeffs: Sequence[float], dousing_border: float,
-                          dousing_inner: float) -> torch.Tensor:
+                          dousing_inner: float, ablate: str = "") -> torch.Tensor:
     """The ignition threshold ``1 - prod_d max(1 - p_d * fire_d, 0)`` of every
     cell, (N, H, W) float32: a tree ignites where its uniform lies below it.
     Each float operation is one rounded float32 operation, in the kernel's
     order."""
     radii = list(range(1, len(layer_coeffs) + 1))
     fire_f = (grid == fire).to(torch.float32)
-    boxes = multi_box_sums(fire_f, radii)
-    heat = torch.zeros_like(fire_f)
-    for r, c in zip(radii, layer_coeffs):
-        heat = heat + c * boxes[r]
-    dbox = multi_box_sums((dousing > 0).to(torch.float32), (1, 2))
-    dousing_ret = ((dousing_inner - dousing_border) * dbox[1]
-                   + dousing_border * dbox[2])
+    if ablate == "boxes":
+        heat = fire_f * 8.0
+        dousing_ret = (dousing > 0).to(torch.float32)
+    else:
+        boxes = multi_box_sums(fire_f, radii)
+        heat = torch.zeros_like(fire_f)
+        for r, c in zip(radii, layer_coeffs):
+            heat = heat + c * boxes[r]
+        dbox = multi_box_sums((dousing > 0).to(torch.float32), (1, 2))
+        dousing_ret = ((dousing_inner - dousing_border) * dbox[1]
+                       + dousing_border * dbox[2])
     base = (heat - dousing_ret) * vdf.float()
+    if ablate == "ignite":
+        return 1.0 - torch.clamp(1.0 - base * 0.1, min=0.0)
 
     no_ignite = torch.ones_like(base)
     for d, (dr, dc) in enumerate(NEIGHBOR_OFFSETS):
@@ -85,7 +100,8 @@ def alexandridis_ignition(grid, dousing, vdf, exp_slope, wind_rows, *, fire: int
 def alexandridis_rule(grid, fire_age, dousing, vdf, exp_slope, wind_rows, u, age_bits,
                       *, empty: int, tree: int, fire: int,
                       layer_coeffs: Sequence[float], dousing_border: float,
-                      dousing_inner: float, fire_age_min: int, fire_age_max: int):
+                      dousing_inner: float, fire_age_min: int, fire_age_max: int,
+                      ablate: str = ""):
     """One Alexandridis step per env given the draws ``u`` and ``age_bits``.
 
     ``grid``, ``dousing`` (N, H, W) int8; ``fire_age`` (N, H, W) float32;
@@ -96,7 +112,7 @@ def alexandridis_rule(grid, fire_age, dousing, vdf, exp_slope, wind_rows, u, age
     fire_mask = grid == fire
     ignite = u < alexandridis_ignition(
         grid, dousing, vdf, exp_slope, wind_rows, fire=fire, layer_coeffs=layer_coeffs,
-        dousing_border=dousing_border, dousing_inner=dousing_inner)
+        dousing_border=dousing_border, dousing_inner=dousing_inner, ablate=ablate)
 
     span = max(fire_age_max - fire_age_min, 1)
     sampled_age = (fire_age_min + age_bits % span).to(torch.float32)
@@ -110,14 +126,18 @@ def alexandridis_rule(grid, fire_age, dousing, vdf, exp_slope, wind_rows, u, age
 
 
 def alexandridis_fused_step_plain(grid, fire_age, dousing, vdf, exp_slope, wind_rows,
-                                  seeds, **kw):
+                                  seeds, *, ablate: str = "", **kw):
     """The kernel's function in plain torch: :func:`alexandridis_rule` on
-    :func:`alexandridis_draws`.  Same arguments as
-    :func:`alexandridis_fused_step`."""
+    :func:`alexandridis_draws` (on u = 0.5 and age words 0 for ``ablate=
+    "prng"``).  Same arguments as :func:`alexandridis_fused_step`."""
     h, w = grid.shape[-2:]
-    u, age_bits = alexandridis_draws(seeds, h, w)
+    if ablate == "prng":
+        u = torch.full(grid.shape, 0.5, device=grid.device)
+        age_bits = torch.zeros(grid.shape, dtype=torch.int64, device=grid.device)
+    else:
+        u, age_bits = alexandridis_draws(seeds, h, w)
     return alexandridis_rule(grid, fire_age, dousing, vdf, exp_slope, wind_rows, u,
-                             age_bits, **kw)
+                             age_bits, ablate=ablate, **kw)
 
 
 @functools.cache
@@ -125,7 +145,8 @@ def _launcher():
     fn = _build.load("alexandridis").alexandridis_launch
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [ptr] * 9 + [c_int, c_int, c_int, ctypes.POINTER(c_float), c_int,
-                               c_float, c_float, c_int, c_int, c_int, c_int, c_int, ptr]
+                               c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
+                               ptr]
     fn.restype = c_int
     return fn
 
@@ -147,6 +168,7 @@ def alexandridis_fused_step(
     dousing_inner: float,
     fire_age_min: int,
     fire_age_max: int,
+    ablate: str = "",  # profiling only: a phase to skip, one of ABLATIONS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched fused Alexandridis step: returns ``(new_grid, new_fire_age)``,
     new tensors (int8 and float32).
@@ -174,10 +196,12 @@ def alexandridis_fused_step(
     for v in (empty, tree, fire):
         if not -128 <= v <= 127:
             raise ValueError(f"cell value {v} does not fit int8")
+    if ablate not in ABLATIONS:
+        raise ValueError(f"ablate must be one of {ABLATIONS}, got {ablate!r}")
 
     if dev.type == "cpu":
         return alexandridis_fused_step_plain(grid, fire_age, dousing, vdf, exp_slope,
-                                             wind_rows, seeds, **kw)
+                                             wind_rows, seeds, ablate=ablate, **kw)
     if dev.type != "cuda":
         raise ValueError(f"alexandridis_fused_step runs on CPU or CUDA tensors, got {dev}")
     if n > _MAX_ENVS:
@@ -196,7 +220,7 @@ def alexandridis_fused_step(
             out_grid.data_ptr(), out_age.data_ptr(), n, h, w, coeffs, len(layer_coeffs),
             float(np.float32(dousing_inner - dousing_border)),
             float(np.float32(dousing_border)), empty, tree, fire, fire_age_min, span,
-            torch.cuda.current_stream(dev).cuda_stream,
+            ABLATIONS.index(ablate), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"alexandridis kernel launch failed: CUDA error {err}")

@@ -1,0 +1,18 @@
+"""Port-side probes: the TPU probe scripts of ``scripts/`` on the card.
+
+Each probe is a hand-written CUDA kernel (``gymca_torch/csrc/``), a wrapper
+with a launch counter and a plain PyTorch version, and an entry point named
+after the script it stands for::
+
+    python3 -m gymca_torch.probes.exp_ca_variants      # S4: four windy-CA formulations
+    python3 -m gymca_torch.probes.bench_fused_ca       # S6: the Alexandridis kernel,
+    python3 -m gymca_torch.probes.bench_fused_ca --tiled  #   its ablations, its streaming floor
+    python3 -m gymca_torch.probes.exp_counts_out       # S1: count output layouts
+    python3 -m gymca_torch.probes.exp_launch_floor     # S2: the launch floor
+    python3 -m gymca_torch.probes.exp_kernel_overhead  # S3: envs per block
+    python3 -m gymca_torch.probes.exp_floor            # S5: table and output shapes
+
+:mod:`~gymca_torch.probes.timing` is their shared timing harness.  The entry
+points run on the card and raise without one; their ``run`` functions take
+``device="cpu"`` and then run the plain versions and measure nothing.
+"""

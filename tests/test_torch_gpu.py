@@ -223,3 +223,88 @@ def test_advanced_env_defaults_to_the_card(cuda):
     assert env.device.type == "cuda" and env.use_fused_ca
     (rgb, _), _ = env.reset()
     assert rgb.device.type == "cuda"
+
+
+# --- the probes -----------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["banded", "bool", "fma", "swar"])
+@pytest.mark.parametrize("n,h,w", [(4, 64, 128), (3, 40, 52), (2, 256, 256), (2, 24, 50)])
+def test_ca_variant_kernel_matches_plain_on_the_card(cuda, variant, n, h, w):
+    from gymca_torch.probes import ca_variants_kernel as cv
+    from gymca_torch.probes.exp_ca_variants import make_inputs
+
+    grid, weights = make_inputs(n, h, w, n + h, cuda)
+    if variant == "swar" and w % 4:
+        with pytest.raises(ValueError):
+            cv.ca_variant_step(variant, grid, weights)
+        return
+    a, b = grid.clone(), grid.clone()
+    before = cv.ca_variant_step.launches[variant]
+    for _ in range(5):
+        a, ca = cv.ca_variant_step(variant, a, weights)
+        b, cb = cv.PLAIN[variant](b, weights)
+        assert torch.equal(a, b) and torch.equal(ca, cb)
+    assert cv.ca_variant_step.launches[variant] == before + 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w", [(3, 16, 32), (2, 256, 256), (1, 512, 512), (2, 40, 52)])
+def test_dma_floor_kernel_matches_plain_on_the_card(cuda, n, h, w):
+    from gymca_torch.probes.dma_floor_kernel import dma_floor, dma_floor_plain
+
+    x, _ = alexandridis_case(40, n, h, w, cuda)
+    args = [x[k] for k in ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows",
+                           "seeds")]
+    before = dma_floor.launches
+    got, want = dma_floor(*args), dma_floor_plain(*args)
+    assert dma_floor.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table_w", [0, 1, 8, 16])
+@pytest.mark.parametrize("counts_w,staged", [(0, False), (1, False), (4, False), (1, True),
+                                             (4, True)])
+@pytest.mark.parametrize("n,envs_per_block", [(4096, 128), (4096, 4096), (100, 12)])
+def test_probe_floor_kernel_matches_plain_on_the_card(cuda, table_w, counts_w, staged, n,
+                                                      envs_per_block):
+    from gymca_torch.probes.floor_kernel import probe_floor, probe_floor_plain
+
+    if staged and (envs_per_block * counts_w % 4 or n * counts_w % 4):
+        pytest.skip("the staged form needs 16-byte units")  # the wrapper raises; tested on the CPU
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(table_w * 10 + counts_w)
+    table = (torch.randint(-2**31, 2**31 - 1, (n, table_w), generator=gen, device=cuda,
+                           dtype=torch.int32) if table_w else None)
+    grid = torch.zeros((n, 8, 16), dtype=torch.int8, device=cuda)
+    got = probe_floor(grid, table, counts_w=counts_w, envs_per_block=envs_per_block,
+                      staged=staged)
+    want = probe_floor_plain(n, table, counts_w=counts_w, device=cuda)
+    assert (got is None and want is None) or torch.equal(got, want)
+    assert not grid.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablate", ["boxes", "ignite", "prng"])
+@pytest.mark.parametrize("n,h,w", [(4, 256, 256), (2, 512, 512), (3, 40, 50)])
+def test_alexandridis_ablation_matches_plain_on_the_card(cuda, ablate, n, h, w):
+    x, kw = alexandridis_case(41, n, h, w, cuda)
+    g, a = ak.alexandridis_fused_step(**x, **kw, ablate=ablate)
+    pg, pa = ak.alexandridis_fused_step_plain(**x, **kw, ablate=ablate)
+    assert torch.equal(g, pg) and torch.equal(a, pa)
+
+
+@pytest.mark.gpu
+def test_probe_entry_points_run_on_the_card(cuda):
+    from gymca_torch.probes import bench_fused_ca, exp_ca_variants, floor_kernel
+    from gymca_torch.probes.floor_kernel import FloorVariant
+
+    rows = exp_ca_variants.run(cuda, n=4, h=64, w=64, steps=3, reps=1)
+    assert all(r["equal"] and r["device_us"] > 0 for r in rows)
+    out = bench_fused_ca.run(cuda, size=64, envs=2, steps=3, reps=1)
+    assert all(out[f"{m}_us"] > 0 for m in bench_fused_ca.MODES)
+    rows = floor_kernel.run_variants([FloorVariant("f", 256, 32, 16, 4, staged=True)], 3,
+                                     cuda, reps=1, h=4, w=4)
+    assert rows[0]["device_us"] > 0

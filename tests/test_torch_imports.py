@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no gymca_tpu, no flax or optax anywhere in
-``gymca_torch/`` or ``chip_smoke.py``, and gymnasium only in the on-demand
-adapter module ``gymca_torch/gym_env.py``.
+``gymca_torch/`` (its probes included) or ``chip_smoke.py``, and gymnasium
+only in the on-demand adapter module ``gymca_torch/gym_env.py``.
 
 This process already imported jax at start-up, so ``sys.modules`` cannot
 show what the port imports: every source is parsed with ``ast`` instead.
@@ -16,6 +16,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax")
 GYM_ADAPTER = ROOT / "gymca_torch" / "gym_env.py"
+PROBES = ("timing", "ca_variants_kernel", "dma_floor_kernel", "floor_kernel",
+          "exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
+          "exp_kernel_overhead", "exp_floor")
 
 
 def imported_modules(path: Path):
@@ -39,6 +42,8 @@ def test_port_sources_exist():
     assert "gymca_torch/ops/alexandridis_kernel.py" in names
     assert "gymca_torch/envs/advanced.py" in names
     assert "chip_smoke.py" in names
+    for probe in PROBES:
+        assert f"gymca_torch/probes/{probe}.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -64,7 +69,8 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     "gymca_torch.ops.windy_kernel", "gymca_torch.envs.bulldozer", "gymca_torch.interop",
     "gymca_torch._build", "gymca_torch.gym_env", "gymca_torch.ops.alexandridis",
     "gymca_torch.ops.alexandridis_kernel", "gymca_torch.envs.terrain",
-    "gymca_torch.envs.extensions", "gymca_torch.envs.advanced",
+    "gymca_torch.envs.extensions", "gymca_torch.envs.advanced", "gymca_torch.probes",
+    *(f"gymca_torch.probes.{p}" for p in PROBES),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)

@@ -1,0 +1,364 @@
+"""The port's probes (``gymca_torch.probes``) against the JAX package and
+their contracts, on the CPU.
+
+* The four windy-CA formulations' plain versions against the bodies of
+  ``scripts/exp_ca_variants.py``, run by a ``pl.pallas_call`` built here as
+  the script's ``run_variant`` builds it, in interpret mode; and, chained,
+  against ``windy_step_from_success``.
+* The Alexandridis step's ablations against the interpreted JAX kernel
+  (``ablate=...``), with the port's draws replaced by zeros (the
+  interpreter's PRNG is a zero stub).
+* ``dma_floor`` and ``probe_floor``: their plain versions against their
+  contracts, the wrappers on the CPU and what they refuse.
+* The entry points: on the CPU at toy sizes, and raising without a card.
+
+The CUDA kernels themselves are held to these plain versions in
+``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.  Tolerances: 0.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+import gymca_torch.ops.alexandridis_kernel as ak
+from gymca_torch import interop
+from gymca_torch.probes import bench_fused_ca, exp_ca_variants, floor_kernel, timing
+from gymca_torch.probes import ca_variants_kernel as cv
+from gymca_torch.probes.dma_floor_kernel import dma_floor, dma_floor_plain, moved_bytes
+from gymca_torch.probes.floor_kernel import FloorVariant, probe_floor, probe_floor_plain
+from gymca_tpu.ops import alexandridis as jalex
+from gymca_tpu.ops import stencil as jstencil
+from gymca_tpu.ops.pallas_alexandridis import alexandridis_fused_step as jax_fused_step
+from gymca_tpu.ops.windy import windy_step_from_success as jax_windy_step
+from scripts import exp_ca_variants as script
+
+EMPTY, TREE, FIRE = cv.EMPTY, cv.TREE, cv.FIRE
+ENTRY_POINTS = ("exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
+                "exp_kernel_overhead", "exp_floor")
+
+
+def windy_case(seed, n, h, w, p_fire=0.1):
+    """A grid of EMPTY/TREE/FIRE and 0/PROPAGATION gusts (p = 0.6), numpy."""
+    r = np.random.default_rng(seed)
+    grid = r.choice(np.asarray([EMPTY, TREE, FIRE], np.int8), (n, h, w),
+                    p=(0.098, 0.902 - p_fire, p_fire))
+    weights = ((r.random((n, 8)) < 0.6) * 8).astype(np.int32)
+    return grid, weights
+
+
+# --- S4: the four formulations ---------------------------------------------------------
+
+
+SCRIPT_BODIES = {"banded": script.kernel_banded, "bool": script.kernel_bool,
+                 "fma": script.kernel_fma, "swar": script.kernel_swar}
+
+
+def script_step(body, grid, weights):
+    """One step of the script's body over every env, as ``run_variant``
+    calls it, in interpret mode: (new grid, [trees, fires])."""
+    n, h, w = grid.shape
+    out, counts = pl.pallas_call(
+        body, grid=(n,),
+        in_specs=[pl.BlockSpec((1, h, w), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
+                  pl.BlockSpec((1, 1, 8), lambda i: (i, 0, 0), memory_space=pltpu.SMEM)],
+        out_specs=(pl.BlockSpec((1, h, w), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
+                   pl.BlockSpec((1, 1, 4), lambda i: (i, 0, 0), memory_space=pltpu.SMEM)),
+        out_shape=(jax.ShapeDtypeStruct((n, h, w), jnp.int8),
+                   jax.ShapeDtypeStruct((n, 1, 4), jnp.int32)),
+        input_output_aliases={0: 0}, interpret=True,
+    )(jnp.asarray(grid), jnp.asarray(weights[:, None, :]))
+    return np.asarray(out), np.asarray(counts)[:, 0, :2]
+
+
+@pytest.mark.parametrize("variant", cv.VARIANTS)
+@pytest.mark.parametrize("seed,n,h,w", [(0, 2, 16, 128), (1, 3, 8, 256)])
+def test_plain_formulation_equals_the_scripts_body(variant, seed, n, h, w):
+    grid, weights = windy_case(seed, n, h, w)
+    want_grid, want_counts = script_step(SCRIPT_BODIES[variant], grid, weights)
+    got, counts = cv.PLAIN[variant](torch.tensor(grid), torch.tensor(weights))
+    np.testing.assert_array_equal(got.numpy(), want_grid)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    success = np.zeros((n, 3, 3), bool)  # the JAX package's own rule, too
+    for i, (dr, dc) in enumerate(jstencil.NEIGHBOR_OFFSETS):
+        success[:, 1 - dr, 1 - dc] = weights[:, i] > 0
+    ref = jax.vmap(lambda g, s: jax_windy_step(g, s, empty=EMPTY, tree=TREE, fire=FIRE))(
+        jnp.asarray(grid), jnp.asarray(success))
+    np.testing.assert_array_equal(want_grid, np.asarray(ref))
+    assert (want_grid == FIRE).sum() > 0 and (grid == FIRE).sum() < (want_grid == FIRE).sum()
+
+
+@pytest.mark.parametrize("variant", cv.VARIANTS)
+@pytest.mark.parametrize("n,h,w", [(3, 16, 32), (2, 9, 20), (2, 7, 13)])
+def test_plain_formulation_chained_equals_windy_step_from_success(variant, n, h, w):
+    """Five steps of each plain version against the port's
+    ``windy_step_from_success``, grid and counts after every step; widths
+    that are not a multiple of 4 too (not for swar, whose wrapper raises)."""
+    grid, weights = windy_case(n * h + w, n, h, w)
+    weights_t = torch.tensor(weights)
+    a, b = torch.tensor(grid), torch.tensor(grid)
+    if variant == "swar" and w % 4:
+        with pytest.raises(ValueError, match="W % 4"):
+            cv.ca_variant_step(variant, a, weights_t)
+        return
+    for step in range(5):
+        a, ca = cv.ca_variant_step(variant, a, weights_t)
+        b, cb = cv.reference_step(b, weights_t)
+        assert torch.equal(a, b), step
+        assert torch.equal(ca, cb), step
+
+
+def test_ca_wrapper_refuses_what_the_kernels_do_not_take():
+    grid, weights = windy_case(3, 2, 8, 16)
+    g, w = torch.tensor(grid), torch.tensor(weights)
+    with pytest.raises(ValueError, match="variant"):
+        cv.ca_variant_step("dense", g, w)
+    with pytest.raises(ValueError):
+        cv.ca_variant_step("bool", g.to(torch.int32), w)
+    with pytest.raises(ValueError):
+        cv.ca_variant_step("bool", g, w[:, :4].contiguous())
+    launches = dict(cv.ca_variant_step.launches)
+    cv.ca_variant_step("banded", g, w)
+    assert cv.ca_variant_step.launches == launches  # no kernel on the CPU
+
+
+def test_exp_ca_variants_runs_on_the_cpu():
+    rows = exp_ca_variants.run(device="cpu", n=3, h=16, w=32, steps=6)
+    assert [r["variant"] for r in rows] == list(cv.VARIANTS)
+    assert all(r["equal"] and r["device_us"] is None for r in rows)
+
+
+# --- the Alexandridis step's ablations ----------------------------------------------------
+
+
+KW = dict(empty=0, tree=1, fire=2,
+          layer_coeffs=jstencil.telescoped_box_coeffs(jalex.burn_kernel_layer_weights(2)),
+          dousing_border=0.01, dousing_inner=0.1, fire_age_min=48, fire_age_max=56)
+
+
+@pytest.fixture
+def zero_draws(monkeypatch):
+    def draws(seeds, h, w):
+        n = seeds.shape[0]
+        return torch.zeros((n, h, w)), torch.zeros((n, h, w), dtype=torch.int64)
+
+    monkeypatch.setattr(ak, "alexandridis_draws", draws)
+
+
+@pytest.mark.usefixtures("zero_draws")
+@pytest.mark.parametrize("ablate", ["boxes", "ignite", "prng"])
+def test_ablation_equals_the_interpreted_jax_kernel(ablate):
+    """Random terrain factors, winds strong enough that trees ignite at
+    u = 0.5, dousing and ages at and around 1, at (2, 8, 128)."""
+    r = np.random.default_rng(21)
+    n, h, w = 2, 8, 128
+    grid = r.choice(np.asarray([0, 1, 1, 2], np.int32), (n, h, w))
+    age = r.choice(np.asarray([0.5, 1.0, 1.5, 2.0, 50.0], np.float32), (n, h, w))
+    dousing = (r.random((n, h, w)) < 0.1).astype(np.int32)
+    vdf = jnp.asarray(r.uniform(0.5, 3.0, (n, h, w)).astype(np.float32)).astype(jnp.bfloat16)
+    slope = jnp.asarray(r.uniform(0.8, 1.25, (n, 3, 3, h, w)).astype(np.float32)
+                        ).astype(jnp.bfloat16)
+    wind = r.uniform(0.0, 40.0, (n, 8)).astype(np.float32)
+    seeds = np.asarray([[3, 17], [5, 23]])
+    jg, ja = jax_fused_step(jnp.asarray(grid), jnp.asarray(age), jnp.asarray(dousing), vdf,
+                            slope, jnp.asarray(wind), jnp.asarray(seeds, jnp.int32),
+                            interpret=True, ablate=ablate, **KW)
+    tg, ta = ak.alexandridis_fused_step(
+        torch.tensor(grid, dtype=torch.int8), torch.tensor(age),
+        torch.tensor(dousing, dtype=torch.int8), interop._bf16_from_numpy(np.asarray(vdf), "cpu"),
+        interop._bf16_from_numpy(np.asarray(slope), "cpu"), torch.tensor(wind),
+        torch.tensor(seeds), ablate=ablate, **KW)
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    ignited = ((tg.numpy() == 2) & (grid == 1)).sum()
+    assert ignited == 0 if ablate == "boxes" else ignited > 0  # heat lives on fires only
+
+
+def test_ablation_prng_ignores_the_draws():
+    """``prng`` takes u = 0.5 and new ages = fire_age_min whatever the seeds."""
+    r = np.random.default_rng(22)
+    x = dict(grid=torch.tensor(r.choice(np.asarray([0, 1, 2], np.int8), (2, 8, 16))),
+             fire_age=torch.full((2, 8, 16), 50.0),
+             dousing=torch.zeros((2, 8, 16), dtype=torch.int8),
+             vdf=torch.full((2, 8, 16), 2.0).to(torch.bfloat16),
+             exp_slope=torch.ones((2, 3, 3, 8, 16)).to(torch.bfloat16),
+             wind_rows=torch.full((2, 8), 100.0))
+    a = ak.alexandridis_fused_step(**x, seeds=torch.tensor([[1, 2], [3, 4]]), ablate="prng", **KW)
+    b = ak.alexandridis_fused_step(**x, seeds=torch.tensor([[9, 8], [7, 6]]), ablate="prng", **KW)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    new_fire = (a[0] == 2) & (x["grid"] == 1)
+    assert new_fire.any() and bool((a[1][new_fire] == KW["fire_age_min"]).all())
+
+
+def test_ablate_rejects_unknown_phases():
+    x = dict(grid=torch.zeros((1, 8, 16), dtype=torch.int8), fire_age=torch.zeros((1, 8, 16)),
+             dousing=torch.zeros((1, 8, 16), dtype=torch.int8),
+             vdf=torch.ones((1, 8, 16)).to(torch.bfloat16),
+             exp_slope=torch.ones((1, 3, 3, 8, 16)).to(torch.bfloat16),
+             wind_rows=torch.ones((1, 8)), seeds=torch.zeros((1, 2), dtype=torch.int64))
+    with pytest.raises(ValueError, match="ablate"):
+        ak.alexandridis_fused_step(**x, ablate="sat", **KW)
+
+
+# --- S6: the streaming floor -------------------------------------------------------------
+
+
+def dma_case(seed, n, h, w):
+    r = np.random.default_rng(seed)
+    return dict(
+        grid=torch.tensor(r.integers(0, 3, (n, h, w)).astype(np.int8)),
+        fire_age=torch.tensor(r.uniform(-2, 600, (n, h, w)).astype(np.float32)),
+        dousing=torch.tensor(r.integers(-128, 128, (n, h, w)).astype(np.int8)),
+        vdf=torch.tensor(r.integers(0, 2**16, (n, h, w)).astype(np.uint16).view(np.int16)
+                         ).view(torch.bfloat16),
+        exp_slope=torch.tensor(r.integers(0, 2**16, (n, 3, 3, h, w)).astype(np.uint16)
+                               .view(np.int16)).view(torch.bfloat16),
+        wind_rows=torch.tensor(r.uniform(0, 4, (n, 8)).astype(np.float32)),
+        seeds=torch.tensor(r.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.int64)),
+    )
+
+
+def numpy_fold(x, e):
+    """The XOR of env e's 32-bit words of every streamed input but grid and
+    age, the centre slope plane left out, in numpy."""
+    parts = [x["dousing"][e].numpy(), x["vdf"][e].view(torch.int16).numpy(),
+             np.delete(x["exp_slope"][e].view(torch.int16).numpy().reshape(9, -1), 4, axis=0),
+             x["wind_rows"][e].numpy(), x["seeds"][e].numpy()]
+    acc = np.uint32(0)
+    for p in parts:
+        acc ^= np.bitwise_xor.reduce(np.ascontiguousarray(p).ravel().view(np.uint32))
+    return int(acc.view(np.int32))
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 16, 32), (2, 8, 10)])
+def test_dma_floor_plain_keeps_its_contract(n, h, w):
+    x = dma_case(n + h, n, h, w)
+    og, oa, fold = dma_floor_plain(**x)
+    assert torch.equal(og, x["grid"]) and og.data_ptr() != x["grid"].data_ptr()
+    assert torch.equal(oa, x["fire_age"] + 1.0) and oa.dtype == torch.float32
+    assert fold.dtype == torch.int32 and fold.tolist() == [numpy_fold(x, e) for e in range(n)]
+    assert moved_bytes(n, h, w) == n * h * w * 29 + n * 48
+
+
+def test_dma_floor_wrapper_on_the_cpu_and_what_it_refuses():
+    x = dma_case(5, 2, 8, 16)
+    launches = dma_floor.launches
+    got, want = dma_floor(**x), dma_floor_plain(**x)
+    assert dma_floor.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="16"):
+        dma_floor(**dma_case(6, 2, 5, 5))
+    bad = dict(x, seeds=x["seeds"].to(torch.int32))
+    with pytest.raises(ValueError):
+        dma_floor(**bad)
+
+
+def test_bench_fused_ca_runs_on_the_cpu():
+    out = bench_fused_ca.run(device="cpu", size=32, envs=2, steps=2)
+    assert out["size"] == 32 and out["device"] == "cpu"
+    assert all(out[f"{m}_us"] is None for m in bench_fused_ca.MODES)
+
+
+# --- S1, S2, S3, S5: the launch-floor family ------------------------------------------------
+
+
+@pytest.mark.parametrize("table_w", floor_kernel.TABLE_WIDTHS)
+@pytest.mark.parametrize("counts_w", floor_kernel.COUNT_WIDTHS)
+def test_probe_floor_writes_every_slot(table_w, counts_w):
+    n = 12
+    table = (torch.arange(n * table_w, dtype=torch.int32).reshape(n, table_w) * 7 + 1
+             if table_w else None)
+    got = probe_floor(torch.zeros((n, 4, 4), dtype=torch.int8), table, counts_w=counts_w,
+                      envs_per_block=4, staged=counts_w > 0 and counts_w % 4 == 0)
+    assert torch.equal(got, probe_floor_plain(n, table, counts_w=counts_w)) if counts_w else (
+        got is None)
+    if not counts_w:
+        return
+    want = np.zeros((n, 4), np.int32)
+    if table_w >= 6:
+        want[:, :2] = table.numpy()[:, 4:6]
+    else:
+        want[:, 0] = 1
+    np.testing.assert_array_equal(got.numpy(), want[:, :counts_w])
+
+
+def test_probe_floor_refuses_what_the_kernel_does_not_take():
+    grid, table = torch.zeros((6, 4, 4), dtype=torch.int8), torch.zeros((6, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="table_w"):
+        probe_floor(grid, torch.zeros((6, 4), dtype=torch.int32), counts_w=4, envs_per_block=2)
+    with pytest.raises(ValueError, match="counts_w"):
+        probe_floor(grid, table, counts_w=2, envs_per_block=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        probe_floor(grid, table, counts_w=1, envs_per_block=2, staged=True)
+    with pytest.raises(ValueError, match="grid or a table"):
+        probe_floor(None, None, counts_w=4, envs_per_block=2)
+    assert probe_floor(None, table, counts_w=4, envs_per_block=3).shape == (6, 4)
+
+
+def test_floor_sweep_runs_on_the_cpu():
+    variants = [FloorVariant("a", 8, 4, 0, 0), FloorVariant("b", 8, 4, 16, 4, staged=True),
+                FloorVariant("c", 4, 2, 8, 1, grid=False)]
+    rows = floor_kernel.run_variants(variants, steps=2, device="cpu", h=4, w=4)
+    assert [r["label"] for r in rows] == ["a", "b", "c"]
+    assert [r["bytes"] for r in rows] == [0, 8 * 4 * 20, 4 * 4 * 9]
+    assert [r["max_abs_err"] for r in rows] == [0, 0, 0]
+
+
+def _fake_sessions(monkeypatch, sessions):
+    """Make ``timing.time_launches`` read ``sessions`` (lists of µs) as the
+    profiler's kernel events, one list per session, with no card."""
+    left = list(sessions)
+    monkeypatch.setattr(timing.torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(timing, "kernel_durations_us", lambda run, kernel: left.pop(0))
+    return left
+
+
+@pytest.mark.parametrize("sessions, device_us, seen", [
+    ([[2.0] * 4, [3.0] * 4, [5.0] * 4], 3.0, [4, 4, 4]),  # median of the three
+    ([[2.0] * 4, [1.0], [4.0] * 3, [5.0] * 4], 4.0, [4, 3, 4]),  # 1 of 4 is made again
+    ([[9.0] * 5, [2.0] * 4, [3.0] * 4, [4.0] * 4], 3.0, [4, 4, 4]),  # 5 of 4 is made again
+    ([[], [1.0], [2.0, 2.0], [3.0] * 4, [1.0] * 4], 2.0, [2, 4, 4]),  # half is enough
+])
+def test_time_launches_keeps_whole_sessions_and_takes_the_median(monkeypatch, sessions,
+                                                                  device_us, seen):
+    left = _fake_sessions(monkeypatch, sessions)
+    calls = []
+    t = timing.time_launches(lambda: calls.append(1), 4, "k")
+    assert (t["device_us"], t["seen"], t["launches"], left) == (device_us, seen, 4, [])
+    assert len(calls) == 4 and t["host_us"] >= 0  # a warm-up, then a host-timed call per rep
+
+
+def test_time_launches_raises_when_no_session_holds(monkeypatch):
+    _fake_sessions(monkeypatch, [[1.0] * 4, [], [1.0], [1.0] * 9])
+    with pytest.raises(RuntimeError, match="in each of 3 sessions"):
+        timing.time_launches(lambda: None, 4, "k")
+
+
+@pytest.mark.parametrize("name", ["exp_counts_out", "exp_launch_floor", "exp_kernel_overhead",
+                                  "exp_floor"])
+def test_floor_entry_points_use_the_scripts_sizes(name):
+    mod = importlib.import_module(f"gymca_torch.probes.{name}")
+    assert all(v.n in (512, 4096) for v in mod.VARIANTS)
+    assert mod.STEPS == (120 if name in ("exp_launch_floor", "exp_kernel_overhead") else 1000)
+    for v in mod.VARIANTS:  # every configuration the card will be asked for is valid
+        assert v.table_w in floor_kernel.TABLE_WIDTHS and v.counts_w in floor_kernel.COUNT_WIDTHS
+        assert not v.staged or (v.envs_per_block * v.counts_w) % 4 == 0
+
+
+# --- every entry point asks for the card -------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_ask_for_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"gymca_torch.probes.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])
