@@ -22,12 +22,21 @@ Phases, each fatal on failure:
    source, all started together, with the ptxas report of each;
 3. K1 against its plain version at (4096, 256, 256) int8 with every env
    class, deferred edits and shots on trees and non-trees (tolerance 0);
+   then the CA pass's band seams (fire on both sides of every seam, every
+   edit and shot on a band's first or last row, so halo rows carry edits),
+   batches that are all CA, all idle and all modify-only envs;
 4. the same at (64, 64, 128) int32, at (16, 40, 50) int8, whose rows take
-   the kernel's one-cell-per-lane path, and at (8, 512, 512) int8, whose bit
-   masks pass 48 KiB of shared memory;
+   the kernel's one-cell-per-lane path, both also on band seams, at (16, 3,
+   64) (bands of one row), at (8, 512, 512) int8, and at (2, 1024, 1024)
+   int8 and int32, whose band masks (64.5 KiB a block) pass the 48 KiB a
+   block gets without opting in;
 5. the Alexandridis kernel against its plain version, grid and age with
    tolerance 0, on synthetic inputs at (64, 256, 256), (4, 512, 512),
-   (2, 1024, 1024) and (16, 40, 50) (ragged tiles);
+   (2, 1024, 1024) and (16, 40, 50) (ragged tiles); then the layouts that
+   can break its tiling at (16, 256, 256) and (4, 96, 200): fire only on
+   tile edges, burning tiles beside fire-free ones, fire only in a tile's
+   1-cell halo, all fire and none; radius 2 (halo 2), radius 7 at 512² and
+   radius 32;
 6. slice 1's main path: reset 4096 envs, step them with random actions from
    a CUDA ``torch.Generator`` under ``torch.cuda.set_sync_debug_mode("error")``,
    the launch counters zeroed before and read after; then ``step_batched``
@@ -47,10 +56,16 @@ Phases, each fatal on failure:
    at checkpoints inside a 4-sigma band of the cross-env noise; then its
    times.  Times, for each path, beside the card's name and power limit:
    env-steps/s; the kernel's device time per launch from the profiler's
-   kernel events, its bound for the bytes and operations of the recorded
-   launches, its plain version; the host time of parts of the step; and a
-   profiler trace of the step (device kernels per step, idle share, time
-   by kernel);
+   kernel events beside its bound for the bytes and operations of those
+   inputs (and, for the Alexandridis kernel, its dense bound, every cell a
+   candidate), on several input sets: K1 on the recorded main-path
+   launches (and its light and CA passes alone), with every env a CA env,
+   with every env idle; the Alexandridis kernel on the recorded main-path
+   launches, the first launches after a reset and synthetic 10%-fire
+   inputs at 64 x 256² (and its ablations on those), recorded and
+   synthetic at 8 x 512²; the plain
+   versions; the host time of parts of the step; and a profiler trace of
+   the step (device kernels per step, idle share, time by kernel);
 8. slice 3: the four windy-CA formulations against their plain versions step
    by step and against each other (tolerance 0) over 40 steps at (256, 256,
    256) and 10 steps at (8, 64, 128), (4, 40, 52) and (4, 40, 50), where the
@@ -74,6 +89,7 @@ CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import sys
@@ -100,9 +116,9 @@ DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
 # 1000 (bench_fused_ca, exp_floor, exp_counts_out) and 120 (the others).
 PROBE_S6_STEPS, PROBE_FLOOR_STEPS = 100, 100
 CA_VARIANT_LINES = {"banded": 39, "bool": 49, "fma": 94, "swar": 141}  # exp_ca_variants.py
-# The default Alexandridis instance's ptxas line, as it was built before the
-# ablation instances were added beside it.
-ALEXANDRIDIS_PTXAS = "Used 32 registers, used 1 barriers"
+# The default Alexandridis instance's ptxas line (the step, vector form):
+# 64 registers, the cap its launch bounds set, and one barrier.
+ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3.  Integer ALU rate:
 # the 67 TFLOP/s float32 peak counts an FMA as two operations on 128 lanes
@@ -110,10 +126,10 @@ ALEXANDRIDIS_PTXAS = "Used 32 registers, used 1 barriers"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.75e12
 FP32_OPS_PER_S = 67e12
-# Integer operations K1's function needs per cell of a CA env: two compares
-# to classify the cell, two selects to write it back, and the word-parallel
-# stencil (about 40 operations per 32-cell word, counted from the kernel).
-OPS_PER_CELL = 4 + 40 / 32
+# gymca_torch.probes.kernel_inputs, imported by main() once the checkout is
+# on the path: the kernels' inputs, the main paths stepped with random
+# actions, and K1's work count.
+ki = None
 
 
 def log(*parts):
@@ -124,48 +140,7 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def k1_work(grid, params, edit_counts, k):
-    """Bytes K1 must move and integer operations it must do for one launch
-    on these inputs, with the env classes counted: every env's params read
-    (16 B) and counts written (12 B); a CA env's weights (32 B), edit count
-    (4 B), its replayed edit words (4 B each) and its grid read and written
-    once; a modify-only env's cell read and written."""
-    n, h, w = grid.shape
-    item = grid.element_size()
-    ca = params[:, 0] > 0
-    n_ca = int(ca.sum())
-    n_mod = int((~ca & (params[:, 3] > 0)).sum())
-    n_edits = int(edit_counts.clamp(0, k)[ca].sum())
-    moved = (n * (16 + 12) + n_ca * (32 + 4 + 2 * h * w * item) + 4 * n_edits
-             + n_mod * 2 * item)
-    return moved, n_ca * h * w * OPS_PER_CELL, n_ca, n_mod, n_edits
-
-
 # --- kernel inputs -------------------------------------------------------------
-
-
-def synthetic_inputs(n, h, w, dtype, k, gen):
-    """K1 inputs with every env class: CA envs (some without fire, some
-    with deferred edits, shots on trees and non-trees), modify-only envs
-    and idle envs."""
-    dev = "cuda"
-
-    def rand(*shape, high):
-        return torch.randint(0, high, shape, generator=gen, device=dev)
-
-    cell = rand(n, h, w, high=10)
-    grid = torch.where(cell < 2, 0, torch.where(cell < 9, 3, 25)).to(dtype)
-    no_fire = rand(n, high=8) == 0
-    grid = torch.where(no_fire[:, None, None] & (grid == 25), 3, grid).to(dtype)
-    cls = rand(n, high=10)  # 0-2 CA, 3-5 modify-only, rest idle
-    do_ca = (cls < 3).to(torch.int32)
-    shoot = ((cls < 6) & (rand(n, high=4) > 0)).to(torch.int32)
-    row, col = rand(n, high=h).to(torch.int32), rand(n, high=w).to(torch.int32)
-    params = torch.stack([do_ca, row, col, shoot], dim=-1).contiguous()
-    weights = (rand(n, 8, high=2) * 8).to(torch.int32)
-    edits = (rand(n, k, high=h) | (rand(n, k, high=w) << 16)).to(torch.int32)
-    edit_counts = rand(n, high=k + 1).to(torch.int32)
-    return grid, weights, params, edits, edit_counts
 
 
 def kernel_vs_plain(inputs, empty=0, tree=3, fire=25):
@@ -191,7 +166,7 @@ def check_kernel(label, inputs):
     n_ca = int((params[:, 0] > 0).sum())
     n_mod = int(((params[:, 0] == 0) & (params[:, 3] > 0)).sum())
     n_hits = int(counts[:, 2].sum())
-    log(f"[kernel] windy_sparse {tuple(inputs[0].shape)} {inputs[0].dtype}: "
+    log(f"[kernel] windy_sparse {label} {tuple(inputs[0].shape)} {inputs[0].dtype}: "
         f"{n_ca} CA envs, {n_mod} modify-only, {n_hits} hits, "
         f"max_abs_err {err} (tolerance 0)")
     if err != 0:
@@ -202,43 +177,11 @@ def check_kernel(label, inputs):
 # --- the main path -----------------------------------------------------------------
 
 
-def draw_actions(gen, steps, n):
-    """Random (steps, n, 2) int32 actions from one torch.randint launch."""
-    r = torch.randint(0, 18, (steps, n), generator=gen, device="cuda")
-    return torch.stack([r // 2, r % 2], dim=-1).to(torch.int32)
-
-
-def run_steps(core, states, actions):
-    for a in actions:
-        states, out = core.step_batched(states, a)
-    return states, out
-
-
-def record_kernel_inputs(core, states, actions):
-    """Step the main path and keep copies of K1's inputs at each launch."""
-    import gymca_torch.envs.bulldozer as bulldozer
-
-    real = bulldozer.windy_fused_step
-    recorded = []
-
-    def recorder(grid, weights, params, edits, edit_counts, **kw):
-        recorded.append(tuple(t.clone() for t in (grid, weights, params, edits,
-                                                   edit_counts)))
-        return real(grid, weights, params, edits, edit_counts, **kw)
-
-    bulldozer.windy_fused_step = recorder
-    try:
-        run_steps(core, states, actions)
-    finally:
-        bulldozer.windy_fused_step = real
-    return recorded
-
-
 def parity(core, keys, gen):
     """step_batched against the eager batched step, bit for bit."""
     a = core.initial_state(keys)
     b = a.clone()
-    actions = draw_actions(gen, PARITY_STEPS, keys.shape[0])
+    actions = ki.draw_actions(gen, PARITY_STEPS, keys.shape[0])
     mismatches = []
     for i, act in enumerate(actions):
         a, out_a = core.step_batched(a, act)
@@ -265,42 +208,6 @@ def parity(core, keys, gen):
 # --- slice 2: the Advanced env and the Alexandridis kernel ----------------------------
 
 
-def alexandridis_inputs(n, h, w, gen):
-    """Alexandridis kernel inputs from a CUDA generator, and the env's
-    keywords at that size: fires, dousing, terrain factors away from 1 and
-    ages at and around 1."""
-    from gymca_torch.ops.alexandridis import AlexandridisCA
-
-    dev = "cuda"
-
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    cells = rand(n, h, w)
-    grid = torch.where(cells < 0.1, 2, torch.where(cells < 0.85, 1, 0)).to(torch.int8)
-    ages = torch.tensor([0.5, 1.0, 1.5, 2.0, 60.0], device=dev)
-    x = dict(
-        grid=grid,
-        fire_age=ages[torch.randint(0, 5, (n, h, w), generator=gen, device=dev)],
-        dousing=(rand(n, h, w) < 0.05).to(torch.int8),
-        vdf=(0.5 + 2.5 * rand(n, h, w)).to(torch.bfloat16),
-        exp_slope=(0.8 + 0.45 * rand(n, 3, 3, h, w)).to(torch.bfloat16),
-        wind_rows=0.5 + 3.5 * rand(n, 8),
-        seeds=torch.randint(0, 2**32, (n, 2), generator=gen, device=dev, dtype=torch.int64),
-    )
-    return x, alexandridis_keywords(AlexandridisCA(h))
-
-
-def alexandridis_keywords(ca):
-    from gymca_torch.ops.stencil import telescoped_box_coeffs
-
-    return dict(empty=ca.empty, tree=ca.tree, fire=ca.fire,
-                layer_coeffs=telescoped_box_coeffs(ca.burn_layer_weights),
-                dousing_border=float(ca._dousing_border),
-                dousing_inner=float(ca._dousing_inner),
-                fire_age_min=int(ca.fire_age_min), fire_age_max=int(ca.fire_age_max))
-
-
 def alexandridis_vs_plain(x, kw):
     """Max |kernel - plain| over new grids and ages on the same inputs, and
     the number of trees the kernel ignited."""
@@ -322,48 +229,11 @@ def alexandridis_vs_plain(x, kw):
 
 def check_alexandridis(label, x, kw):
     err, ignited = alexandridis_vs_plain(x, kw)
-    log(f"[kernel] alexandridis {tuple(x['grid'].shape)} radius {len(kw['layer_coeffs'])}: "
-        f"{ignited} trees ignited, max_abs_err {err} (tolerance 0, grid and age)")
+    log(f"[kernel] alexandridis {label} (radius {len(kw['layer_coeffs'])}): {ignited} trees "
+        f"ignited, max_abs_err {err} (tolerance 0, grid and age)")
     if err != 0:
         fail(f"alexandridis disagrees with its plain version at {label}")
     return err
-
-
-def adv_actions(gen, steps, n):
-    """Random (steps, n, 3) int32 actions (move 0-8, shoot 0-1, extension 0)
-    from one torch.randint launch."""
-    r = torch.randint(0, 18, (steps, n), generator=gen, device="cuda")
-    return torch.stack([r // 2, r % 2, torch.zeros_like(r)], dim=-1).to(torch.int32)
-
-
-def adv_run(env, obs, info, actions):
-    """``stateless_step`` then ``conditional_reset`` per action; returns the
-    last observation and info and the last ``stateless_step`` tuple."""
-    for a in actions:
-        step = env.stateless_step(a, obs, info)
-        reset = env.conditional_reset(step, a)
-        obs, info = reset[0], reset[4]
-    return obs, info, step
-
-
-def adv_record_kernel_inputs(env, obs, info, actions):
-    """Step the Advanced path and keep copies of the kernel's inputs."""
-    import gymca_torch.envs.advanced as advanced
-
-    real = advanced.alexandridis_fused_step
-    recorded = []
-
-    def recorder(*args, **kw):
-        names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
-        recorded.append(({k: t.clone() for k, t in zip(names, args)}, kw))
-        return real(*args, **kw)
-
-    advanced.alexandridis_fused_step = recorder
-    try:
-        adv_run(env, obs, info, actions)
-    finally:
-        advanced.alexandridis_fused_step = real
-    return recorded
 
 
 def adv_parity(gen):
@@ -379,7 +249,7 @@ def adv_parity(gen):
                                          num_envs=n, terrain=cpu._terrain_ctx)
     (c_obs, c_info), (g_obs, g_info) = cpu.reset(), gpu.reset()
     mismatches = []
-    for i, a in enumerate(adv_actions(gen, ADV_PARITY_STEPS, n)):
+    for i, a in enumerate(ki.adv_actions(gen, ADV_PARITY_STEPS, n)):
         if i == ADV_PARITY_STEPS // 2:  # env 0 loses its fire: reset on both
             for pe in (c_obs[1]["per_env_context"], g_obs[1]["per_env_context"]):
                 tg = pe["true_grid"]
@@ -410,7 +280,7 @@ def fire_stats(env, obs, info, steps, checkpoints):
     trees0 = (obs[1]["per_env_context"]["true_grid"] == 1).sum(dim=(1, 2))
     out = {}
     for t in range(1, steps + 1):
-        obs, info, _ = adv_run(env, obs, info, [stay])
+        obs, info, _ = ki.adv_run(env, obs, info, [stay])
         if t in checkpoints:
             pe = obs[1]["per_env_context"]
             fire = pe["true_grid"] == 2
@@ -419,27 +289,6 @@ def fire_stats(env, obs, info, steps, checkpoints):
             burned = trees0 - (pe["true_grid"] == 1).sum(dim=(1, 2))
             out[t] = [v.double().cpu() for v in (fires, burned, age)]
     return out
-
-
-def alexandridis_work(x, kw):
-    """Bytes the Alexandridis step must move and operations it must do on
-    these inputs.  Bytes per cell: grid (1), age (4), dousing (1), vdf (2)
-    and the 8 direction planes of exp_slope (16; the centre plane is no
-    input of the function) read, grid (1) and age (4) written: 29; per env
-    the wind row (32) and seeds (16).  Operations per cell, counted from the
-    kernel: integer, 77 for threefry2x32 (2 key adds, then 5 x (4 rounds of
-    add, rotate, xor, and 3 key-schedule adds)), 3 per box sum of the R + 2
-    boxes, 4 to build the two summed-area tables, and 4 for the uniform, the
-    age and the rule's selects; float32, 2R for the heat, 3 for the dousing,
-    2 for the base, 5 for each of 8 directions and 2 for the threshold and
-    the age update."""
-    n, h, w = x["grid"].shape
-    r = len(kw["layer_coeffs"])
-    cells = n * h * w
-    moved = cells * 29 + n * (32 + 16)
-    int_ops = cells * (77 + 3 * (r + 2) + 4 + 4)
-    flt_ops = cells * (2 * r + 3 + 2 + 5 * 8 + 2)
-    return moved, int_ops, flt_ops
 
 
 # --- slice 3: the probes --------------------------------------------------------------
@@ -535,13 +384,13 @@ def probe_phase(card, gen, adv_recorded):
                            (4, 40, 50, 10)):
         for v, e in check_ca_variants(n, h, w, steps).items():
             ca_err[v] = max(ca_err[v], e)
-    dma_x = {size: alexandridis_inputs(n, size, size, gen)[0]
+    dma_x = {size: ki.alexandridis_inputs(n, size, size, gen)[0]
              for n, size in ((ADV_ENVS, ADV_SIZE), (K3_ENVS, K3_SIZE))}
     dma_err = max(check_dma_floor(x) for x in dma_x.values())
     # Each ablation at both shapes the probes' path times it at: 64 x 256²
     # (radius 6, one tile row) and 8 x 512² (radius 7, tiled).
     for n, size in ((ADV_ENVS, ADV_SIZE), (K3_ENVS, K3_SIZE)):
-        x, kw = alexandridis_inputs(n, size, size, gen)
+        x, kw = ki.alexandridis_inputs(n, size, size, gen)
         for ablate in ABLATIONS[1:]:
             g_k, a_k = alexandridis_fused_step(**x, **kw, ablate=ablate)
             g_p, a_p = alexandridis_fused_step_plain(**x, **kw, ablate=ablate)
@@ -614,7 +463,7 @@ def probe_phase(card, gen, adv_recorded):
     n_cells = grid0.numel()
     ca_bytes = 2 * n_cells + exp_ca_variants.N * (32 + 8)
     ca_bound = max((ca_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                   (n_cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3, "operations"))
+                   (n_cells * ki.OPS_PER_CELL / INT32_OPS_PER_S * 1e3, "operations"))
     for v in VARIANTS:
         scratch = grid0.clone()
         entries.append(dict(
@@ -656,6 +505,82 @@ def probe_phase(card, gen, adv_recorded):
                                                  for e in entries))
     log(f"[probe] phase took {time.perf_counter() - t0:.1f}s")
     return entries
+
+
+# --- kernel times -------------------------------------------------------------------
+
+
+def k1_pass(grid, kin, repeats):
+    """``repeats`` passes of K1 over launches ``kin`` ((weights, params,
+    edits, edit_counts) each) on ``grid``, in place."""
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+
+    for _ in range(repeats):
+        for w_, p_, e_, c_ in kin:
+            windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
+
+
+def time_k1(card, label, grid0, kin):
+    """K1's device time per call (its light and CA passes) cycling ``kin``
+    on a copy of ``grid0``, restored before every session, and its bound
+    for these inputs (``kernel_inputs.k1_work``): ``(ms, bound_ms, by)``."""
+    from gymca_torch.probes.timing import time_launches
+
+    grid = grid0.clone()
+    t = time_launches(lambda: k1_pass(grid, kin, KERNEL_REPEATS), KERNEL_REPEATS * len(kin),
+                      "windy_", reset=lambda: grid.copy_(grid0))
+    work = [ki.k1_work(grid0, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
+    moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    log(f"[time] [{card}] windy_sparse {label}: {t['device_us']} us/call of device time "
+        f"(light pass + CA pass, each kernel's own median: {t['kernels']}), median of 3 "
+        f"sessions of {t['launches']} calls (events kept "
+        f"{t['seen']}), {n_ca} CA envs with {n_edits} replayed edits and {n_mod} modify-only "
+        f"envs of {grid0.shape[0]}; bound {bound_ms * 1e3} us by {bound_by} (bytes: "
+        f"{moved / 1e6} MB/call at 3.35 TB/s = {bytes_ms * 1e3} us; operations: "
+        f"{ki.OPS_PER_CELL}/cell at 16.75 T int32 ops/s = {ops_ms * 1e3} us)")
+    return t["device_us"] / 1e3, bound_ms, bound_by
+
+
+def time_k2(card, label, launches):
+    """The Alexandridis kernel's device time per launch cycling ``launches``
+    ((x, kw) each), and its bounds: for these inputs (``alexandridis_work``:
+    10 B a cell, dousing a cell within 2 of a candidate, vdf and the burning
+    directions' planes a candidate, threefry and the box sums a candidate)
+    and dense (29 B a cell, every cell a candidate), each the larger of bytes at 3.35 TB/s and operations at the
+    int32 or float32 rate.  Returns ``(ms, bound_ms, by, dense_ms)``."""
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step, alexandridis_work
+    from gymca_torch.probes.timing import time_launches
+
+    def run():
+        for _ in range(KERNEL_REPEATS):
+            for x, kw in launches:
+                alexandridis_fused_step(**x, **kw)
+
+    t = time_launches(run, KERNEL_REPEATS * len(launches), "alexandridis_kernel")
+    work = [alexandridis_work(x, kw) for x, kw in launches]
+    avg = {k: sum(w[k] for w in work) / len(work) for k in work[0]}
+
+    def bound(b, i, f):
+        ops = max(i / INT32_OPS_PER_S, f / FP32_OPS_PER_S)
+        return max((b / HBM_BYTES_PER_S * 1e3, "bytes"), (ops * 1e3, "operations"))
+
+    bound_ms, by = bound(avg["bytes"], avg["int_ops"], avg["float_ops"])
+    dense_ms, dense_by = bound(avg["dense_bytes"], avg["dense_int_ops"], avg["dense_float_ops"])
+    n, h, w = launches[0][0]["grid"].shape
+    log(f"[time] [{card}] alexandridis {label} ({n} x {h}x{w}, radius "
+        f"{len(launches[0][1]['layer_coeffs'])}): {t['device_us']} us/launch of device time, "
+        f"median of 3 sessions of {t['launches']} launches (events kept {t['seen']}), "
+        f"{len(launches)} input(s); candidates {avg['candidates'] / avg['cells']} of the cells, "
+        f"{avg['candidate_directions'] / max(avg['candidates'], 1)} burning directions each, "
+        f"{avg['doused_cells'] / avg['cells']} of the cells within reach of one; "
+        f"bound for these inputs {bound_ms * 1e3} us by {by} ({avg['bytes'] / 1e6} MB at 3.35 "
+        f"TB/s = {avg['bytes'] / HBM_BYTES_PER_S * 1e6} us; {avg['int_ops'] / 1e6} M int32 at "
+        f"16.75 T/s = {avg['int_ops'] / INT32_OPS_PER_S * 1e6} us, {avg['float_ops'] / 1e6} M "
+        f"float32 at 67 T/s = {avg['float_ops'] / FP32_OPS_PER_S * 1e6} us); dense bound "
+        f"{dense_ms * 1e3} us by {dense_by} ({avg['dense_bytes'] / 1e6} MB)")
+    return t["device_us"] / 1e3, bound_ms, by, dense_ms
 
 
 # --- profile -----------------------------------------------------------------------
@@ -716,14 +641,21 @@ def main() -> int:
 
     if Path(gymca_torch.__file__).resolve().parent.parent != HERE:
         fail(f"gymca_torch imported from {gymca_torch.__file__}, not this checkout")
+    global ki
+    from gymca_torch.probes import kernel_inputs as ki
     from gymca_torch import _build, rng
     from gymca_torch.envs.bulldozer import BulldozerCore, derive_step_key
     from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
     from gymca_torch.ops.alexandridis_kernel import (
+        ABLATIONS,
         alexandridis_fused_step,
         alexandridis_fused_step_plain,
     )
-    from gymca_torch.ops.windy_kernel import windy_fused_step, windy_fused_step_plain
+    from gymca_torch.ops.windy_kernel import (
+        shared_memory_bytes,
+        windy_fused_step,
+        windy_fused_step_plain,
+    )
     from gymca_torch.probes.timing import card as nvidia_smi_line
     from gymca_torch.probes.timing import cuda_ms, host_us, time_launches
 
@@ -744,29 +676,58 @@ def main() -> int:
     for b in built.values():
         for line in b.ptxas_report():
             log(f"[build] {b.name}: {line}")
+    clusters = _build.load("windy_sparse").windy_sparse_clusters
+    clusters.argtypes, clusters.restype = [ctypes.c_int] * 3, ctypes.c_int
+    log(f"[build] windy_sparse: the CA pass launches {clusters(1, H, W)} clusters at {H}x{W} "
+        f"int8, the clusters the card holds at once")
     default = [lines for name, lines in built["alexandridis"].ptxas_entries().items()
-               if "alexandridis_kernelILi0E" in name]
+               if "alexandridis_kernelILi0ELb1E" in name]  # the step, vector form
     if (len(default) != 1 or not any(ALEXANDRIDIS_PTXAS in ln for ln in default[0])
             or not any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in default[0])):
         fail(f"the default alexandridis instance's ptxas report changed: {default}")
 
-    # 3-4. kernel against plain
+    # 3-4. kernel against plain: every env class, the band seams of the CA
+    #      pass (fire on both sides, edits and shots on a band's first and
+    #      last row), batches of one class, int32 rows, rows of a width that
+    #      takes the cell-per-lane path, and masks past 48 KiB
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     k_main = BulldozerCore(H, W)._edit_log_k
-    max_err = max(
-        check_kernel("main shape", synthetic_inputs(N_ENVS, H, W, torch.int8, k_main, gen)),
-        check_kernel("int32", synthetic_inputs(64, 64, 128, torch.int32, 5, gen)),
-        check_kernel("odd width", synthetic_inputs(16, 40, 50, torch.int8, 3, gen)),
-        check_kernel("past 48 KiB", synthetic_inputs(8, 512, 512, torch.int8, 5, gen)),
-    )
+    k1_cases = [
+        ("main shape", (N_ENVS, H, W, torch.int8, k_main), {}),
+        ("band seams", (1024, H, W, torch.int8, k_main), dict(seams=True)),
+        ("all CA", (1024, H, W, torch.int8, k_main), dict(classes="ca")),
+        ("all CA, band seams", (512, H, W, torch.int8, k_main), dict(classes="ca", seams=True)),
+        ("all idle", (1024, H, W, torch.int8, k_main), dict(classes="idle")),
+        ("all modify-only", (1024, H, W, torch.int8, k_main), dict(classes="modify")),
+        ("int32", (64, 64, 128, torch.int32, 5), {}),
+        ("int32, band seams", (64, 64, 128, torch.int32, 5), dict(seams=True, classes="ca")),
+        ("odd width", (16, 40, 50, torch.int8, 3), {}),
+        ("odd width, band seams", (64, 40, 50, torch.int8, 5), dict(seams=True, classes="ca")),
+        ("3 rows", (16, 3, 64, torch.int8, 4), {}),
+        ("512 x 512", (8, 512, 512, torch.int8, 5), {}),
+        ("masks past 48 KiB", (2, 1024, 1024, torch.int8, 5), dict(classes="ca")),
+        ("masks past 48 KiB, int32, all CA", (2, 1024, 1024, torch.int32, 5),
+         dict(classes="ca", seams=True)),
+    ]
+    if shared_memory_bytes(1024, 1024) <= 48 * 1024:
+        fail(f"the 'masks past 48 KiB' cases stage {shared_memory_bytes(1024, 1024)} B a block")
+    max_err = max(check_kernel(label, ki.windy_inputs(*args, gen, **kw))
+                  for label, args, kw in k1_cases)
 
-    # 5. the Alexandridis kernel against plain
+    # 5. the Alexandridis kernel against plain: the earlier sizes, then fire
+    #    on tile edges only, burning tiles beside fire-free ones, fire only in
+    #    a tile's 1-cell halo, all fire and none, radius 2 (halo 2) and 7
+    k2_cases = [((ADV_ENVS, ADV_SIZE, ADV_SIZE), "random", None), ((4, 512, 512), "random", None),
+                ((2, 1024, 1024), "random", None), ((16, 40, 50), "random", None)]
+    k2_cases += [((16, ADV_SIZE, ADV_SIZE), lay, None) for lay in ki.K2_LAYOUTS[1:]]
+    k2_cases += [((4, 96, 200), lay, None) for lay in ("tile_edges", "halo_only")]
+    k2_cases += [((16, ADV_SIZE, ADV_SIZE), "random", 2), ((4, 512, 512), "halo_only", None),
+                 ((2, 100, 136), "random", 32)]
     adv_max_err = max(
-        check_alexandridis(f"({n}, {h}, {w})", *alexandridis_inputs(n, h, w, gen))
-        for n, h, w in ((ADV_ENVS, ADV_SIZE, ADV_SIZE), (4, 512, 512), (2, 1024, 1024),
-                        (16, 40, 50))
-    )
+        check_alexandridis(f"{shape} {lay}",
+                           *ki.alexandridis_inputs(*shape, gen, layout=lay, radius=rad))
+        for shape, lay, rad in k2_cases)
 
     # 6. slice 1's main path
     core = BulldozerCore(H, W)
@@ -778,13 +739,13 @@ def main() -> int:
     log(f"[main] reset {N_ENVS} envs at {H}x{W} {reset_states.grid.dtype} "
         f"({reset_states.grid.numel() * reset_states.grid.element_size() / 2**20:.0f} "
         f"MiB of grid) in {time.perf_counter() - t0:.2f}s; edit log K={core._edit_log_k}")
-    actions = draw_actions(gen, MAIN_STEPS, N_ENVS)
+    actions = ki.draw_actions(gen, MAIN_STEPS, N_ENVS)
     states = reset_states.clone()
     torch.cuda.synchronize()
     windy_fused_step.launches = alexandridis_fused_step.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        states, out = run_steps(core, states, actions)
+        states, out = ki.run_steps(core, states, actions)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = windy_fused_step.launches
@@ -807,8 +768,8 @@ def main() -> int:
 
     # Recorded from where the main path ended: by then the envs' CA periods
     # have drifted apart, as in a long run (from a reset they fire together).
-    recorded = record_kernel_inputs(core, states.clone(),
-                                    draw_actions(gen, RECORDED_LAUNCHES, N_ENVS))
+    recorded = ki.record_windy_launches(core, states.clone(),
+                                    ki.draw_actions(gen, RECORDED_LAUNCHES, N_ENVS))
     rec_err = max(kernel_vs_plain(inp)[0] for inp in recorded[:3])
     log(f"[kernel] windy_sparse on main-path inputs (3 recorded launches): "
         f"max_abs_err {rec_err} (tolerance 0)")
@@ -822,7 +783,7 @@ def main() -> int:
         s = reset_states.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s, _ = run_steps(core, s, actions)
+        s, _ = ki.run_steps(core, s, actions)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rates.append((N_ENVS * MAIN_STEPS / dt, dt, float(s.done.float().mean())))
@@ -831,37 +792,20 @@ def main() -> int:
         f"{TIMING_REPS}: {best[0]} env-steps/s ({best[1] * 1e3 / MAIN_STEPS} ms/step); "
         f"reps " + ", ".join(f"{r[0]} env-steps/s (done fraction {r[2]})" for r in rates))
 
-    grid = recorded[0][0].clone()
+    # K1's device time on three input sets, each beside its bound: the
+    # recorded main-path launches, every env a CA env, every env idle.
     kin = [inp[1:] for inp in recorded]
-
-    def kernel_pass():
-        for w_, p_, e_, c_ in kin:
-            windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
-
-    k1_time = time_launches(lambda: [kernel_pass() for _ in range(KERNEL_REPEATS)],
-                            KERNEL_REPEATS * len(kin), "windy_sparse_kernel")
-    kernel_ms = k1_time["device_us"] / 1e3
-    work = [k1_work(grid, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
-    bytes_moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
-    bytes_ms, ops_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    kernel_ms, bound_ms, bound_by = time_k1(card, "on recorded main-path launches",
+                                            recorded[0][0], kin)
+    all_ca = ki.windy_inputs(N_ENVS, H, W, torch.int8, k_main, gen, classes="ca")
+    time_k1(card, f"with every env a CA env ({N_ENVS})", all_ca[0], [all_ca[1:]])
     noop = torch.zeros_like(kin[0][1])
-    noop_time = time_launches(
-        lambda: [windy_fused_step(grid, kin[0][0], noop, kin[0][2], kin[0][3], empty=0, tree=3,
-                                  fire=25) for _ in range(100)], 100, "windy_sparse_kernel")
-    plain_grid = grid.clone()
+    time_k1(card, "with every env idle (recorded grid, params zero)", recorded[0][0],
+            [(kin[0][0], noop, kin[0][2], kin[0][3])])
+    plain_grid = recorded[0][0].clone()
     plain_ms = cuda_ms(lambda: windy_fused_step_plain(plain_grid, *kin[0], empty=0, tree=3,
                                                       fire=25), 3)
-    log(f"[time] [{card}] windy_sparse kernel: {kernel_ms * 1e3} us/launch of device "
-        f"time, median of 3 sessions of {k1_time['launches']} launches (events kept "
-        f"{k1_time['seen']}) cycling {len(kin)} recorded main-path launches "
-        f"({n_ca} CA envs with {n_edits} replayed edits and {n_mod} modify-only envs per "
-        f"launch of {N_ENVS}); bound {bound_ms * 1e3} us by {bound_by} (bytes: "
-        f"{bytes_moved / 1e6} MB/launch at 3.35 TB/s = {bytes_ms * 1e3} us; operations: "
-        f"{OPS_PER_CELL}/cell at 16.75 T int32 ops/s = {ops_ms * 1e3} us); plain version "
-        f"{plain_ms * 1e3} us/call (CUDA events); every env a no-op {noop_time['device_us']} "
-        f"us/launch of device time, median of 3 sessions of 100 launches (events kept "
-        f"{noop_time['seen']})")
+    log(f"[time] [{card}] windy_sparse plain version {plain_ms * 1e3} us/call (CUDA events)")
 
     s = reset_states.clone()
     torch.cuda.synchronize()
@@ -871,7 +815,7 @@ def main() -> int:
     torch.cuda.synchronize()
     key_us = (time.perf_counter() - t0) / 20 * 1e6
     t0 = time.perf_counter()
-    s, _ = run_steps(core, s, actions[:20])
+    s, _ = ki.run_steps(core, s, actions[:20])
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) / 20 * 1e6
     log(f"[time] [{card}] parts of a step, host clock to a synchronize: step "
@@ -879,8 +823,8 @@ def main() -> int:
         f"{kernel_ms * 1e3} us")
 
     prof_states = reset_states.clone()
-    run_steps(core, prof_states, actions[:2])  # warm
-    prof = profile_steps(lambda: run_steps(core, prof_states, actions[:PROFILE_STEPS]),
+    ki.run_steps(core, prof_states, actions[:2])  # warm
+    prof = profile_steps(lambda: ki.run_steps(core, prof_states, actions[:PROFILE_STEPS]),
                          PROFILE_STEPS, f"step_batched {N_ENVS} x {H}x{W}", card)
 
     # 7. slice 2's main path
@@ -894,12 +838,12 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[advanced] reset {ADV_ENVS} envs at {ADV_SIZE}x{ADV_SIZE} (uint8 obs, hidden "
         f"terrain, CA radius {env.ca.burn_kernel_radius}) in {time.perf_counter() - t0:.2f}s")
-    adv_acts = adv_actions(gen, ADV_STEPS, ADV_ENVS)
+    adv_acts = ki.adv_actions(gen, ADV_STEPS, ADV_ENVS)
     torch.cuda.synchronize()
     windy_fused_step.launches = alexandridis_fused_step.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        adv_obs, adv_info, adv_last = adv_run(env, reset_obs, reset_info, adv_acts)
+        adv_obs, adv_info, adv_last = ki.adv_run(env, reset_obs, reset_info, adv_acts)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     adv_launches = alexandridis_fused_step.launches
@@ -927,8 +871,8 @@ def main() -> int:
         f"the card equals the CPU env with the kernel's plain version, bit for bit "
         f"({adv_fires} fires at the end)")
 
-    adv_recorded = adv_record_kernel_inputs(env, adv_obs, adv_info,
-                                            adv_actions(gen, RECORDED_LAUNCHES, ADV_ENVS))
+    adv_recorded = ki.record_alexandridis_launches(env, adv_obs, adv_info,
+                                            ki.adv_actions(gen, RECORDED_LAUNCHES, ADV_ENVS))
     adv_rec_err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in adv_recorded[:3])
     log(f"[kernel] alexandridis on main-path inputs (3 recorded launches): max_abs_err "
         f"{adv_rec_err} (tolerance 0, grid and age)")
@@ -939,12 +883,12 @@ def main() -> int:
     env_k3 = AdvancedForestFireBulldozerEnv(K3_SIZE, K3_SIZE, key=rng.key(SEED),
                                             num_envs=K3_ENVS)
     k3_obs, k3_info = env_k3.reset()
-    k3_acts = adv_actions(gen, K3_STEPS, K3_ENVS)
+    k3_acts = ki.adv_actions(gen, K3_STEPS, K3_ENVS)
     torch.cuda.synchronize()
     alexandridis_fused_step.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
-        k3_obs, _, k3_last = adv_run(env_k3, k3_obs, k3_info, k3_acts)
+        k3_obs, _, k3_last = ki.adv_run(env_k3, k3_obs, k3_info, k3_acts)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     k3_launches = alexandridis_fused_step.launches
@@ -954,8 +898,8 @@ def main() -> int:
         f"launches, mean reward {k3_last[1].mean().item()}")
     if k3_launches != K3_STEPS or not torch.isfinite(k3_last[1]).all():
         fail(f"expected {K3_STEPS} alexandridis launches and finite rewards at {K3_SIZE}²")
-    k3_recorded = adv_record_kernel_inputs(env_k3, k3_obs, k3_info,
-                                           adv_actions(gen, 3, K3_ENVS))
+    k3_recorded = ki.record_alexandridis_launches(env_k3, k3_obs, k3_info,
+                                           ki.adv_actions(gen, 3, K3_ENVS))
 
     env_xla = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
                                              num_envs=ADV_ENVS, use_fused_ca=False,
@@ -987,7 +931,7 @@ def main() -> int:
     for rep in range(TIMING_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, last = adv_run(env, reset_obs, reset_info, adv_acts)
+        _, _, last = ki.adv_run(env, reset_obs, reset_info, adv_acts)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         adv_rates.append((ADV_ENVS * ADV_STEPS / dt, dt, float(last[2].float().mean())))
@@ -997,49 +941,35 @@ def main() -> int:
         f"env-steps/s ({adv_best[1] * 1e3 / ADV_STEPS} ms/step); reps " + ", ".join(
             f"{r[0]} env-steps/s (done fraction {r[2]})" for r in adv_rates))
 
-    def adv_kernel_pass():
-        for x, kw in adv_recorded:
-            alexandridis_fused_step(**x, **kw)
-
-    adv_time = time_launches(lambda: [adv_kernel_pass() for _ in range(KERNEL_REPEATS)],
-                             KERNEL_REPEATS * len(adv_recorded), "alexandridis_kernel")
-    adv_kernel_ms = adv_time["device_us"] / 1e3
-    work = [alexandridis_work(x, kw) for x, kw in adv_recorded]
-    a_bytes, a_int, a_flt = (sum(v) / len(work) for v in zip(*work))
-    a_bytes_ms = a_bytes / HBM_BYTES_PER_S * 1e3
-    a_int_ms, a_flt_ms = a_int / INT32_OPS_PER_S * 1e3, a_flt / FP32_OPS_PER_S * 1e3
-    adv_bound_ms, adv_bound_by = max((a_bytes_ms, "bytes"),
-                                     (max(a_int_ms, a_flt_ms), "operations"))
+    # The Alexandridis kernel's device time on five input sets, each beside
+    # its bound for those inputs and its dense bound: at 64 x 256², launches
+    # recorded on the main path, the first launches after a reset (2 burning
+    # cells per env) and synthetic 10%-fire inputs; at 8 x 512², recorded and
+    # synthetic.
+    adv_kernel_ms, adv_bound_ms, adv_bound_by, _ = time_k2(
+        card, "on recorded main-path launches", adv_recorded)
+    after_reset = ki.record_alexandridis_launches(env, reset_obs, reset_info,
+                                                  ki.adv_actions(gen, RECORDED_LAUNCHES,
+                                                                 ADV_ENVS))
+    time_k2(card, "on the first launches after a reset", after_reset)
+    synthetic = ki.alexandridis_inputs(ADV_ENVS, ADV_SIZE, ADV_SIZE, gen)
+    time_k2(card, "on synthetic 10%-fire inputs", [synthetic])
+    for ablate in ABLATIONS[1:]:  # where the dense case's time goes
+        t = time_launches(lambda: [alexandridis_fused_step(**synthetic[0], **synthetic[1],
+                                                           ablate=ablate)
+                                   for _ in range(KERNEL_REPEATS)],
+                          KERNEL_REPEATS, "alexandridis_kernel")
+        log(f"[time] [{card}] alexandridis ablate={ablate!r} on the same synthetic inputs: "
+            f"{t['device_us']} us/launch of device time (events kept {t['seen']})")
+    k3_ms = time_k2(card, "on recorded launches", k3_recorded)[0]
+    time_k2(card, "on synthetic 10%-fire inputs",
+            [ki.alexandridis_inputs(K3_ENVS, K3_SIZE, K3_SIZE, gen)])
     x0, kw0 = adv_recorded[0]
     adv_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**x0, **kw0), 3)
-    log(f"[time] [{card}] alexandridis kernel: {adv_kernel_ms * 1e3} us/launch of device "
-        f"time, median of 3 sessions of {adv_time['launches']} launches (events kept "
-        f"{adv_time['seen']}) cycling {len(adv_recorded)} recorded main-path launches "
-        f"({ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}); bound {adv_bound_ms * 1e3} us by "
-        f"{adv_bound_by} (bytes: {a_bytes / 1e6} MB/launch at 3.35 TB/s = {a_bytes_ms * 1e3} "
-        f"us; operations: {a_int / 1e6} M int32 at 16.75 T/s = {a_int_ms * 1e3} us and "
-        f"{a_flt / 1e6} M float32 at 67 T/s = {a_flt_ms * 1e3} us, on separate pipes); "
-        f"plain version {adv_plain_ms * 1e3} us/call (CUDA events)")
-
-    def k3_pass():
-        for x, kw in k3_recorded:
-            alexandridis_fused_step(**x, **kw)
-
-    k3_time = time_launches(lambda: [k3_pass() for _ in range(KERNEL_REPEATS)],
-                            KERNEL_REPEATS * len(k3_recorded), "alexandridis_kernel")
-    k3_ms = k3_time["device_us"] / 1e3
-    k3_bytes, k3_int, k3_flt = alexandridis_work(*k3_recorded[0])
-    k3_bound_ms = max(k3_bytes / HBM_BYTES_PER_S, k3_int / INT32_OPS_PER_S,
-                      k3_flt / FP32_OPS_PER_S) * 1e3
     k3_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**k3_recorded[0][0],
                                                                 **k3_recorded[0][1]), 3)
-    log(f"[time] [{card}] alexandridis kernel at {K3_ENVS} x {K3_SIZE}x{K3_SIZE} (radius "
-        f"{len(k3_recorded[0][1]['layer_coeffs'])}): {k3_ms * 1e3} us/launch of device time "
-        f"median of 3 sessions of {k3_time['launches']} launches (events kept "
-        f"{k3_time['seen']}) cycling {len(k3_recorded)} recorded ones; bound {k3_bound_ms * 1e3} "
-        f"us ({k3_bytes / 1e6} MB at 3.35 TB/s = {k3_bytes / HBM_BYTES_PER_S * 1e6} us; "
-        f"{k3_int / 1e6} M int32 at 16.75 T/s = {k3_int / INT32_OPS_PER_S * 1e6} us); plain "
-        f"version {k3_plain_ms * 1e3} us/call (CUDA events)")
+    log(f"[time] [{card}] alexandridis plain version {adv_plain_ms * 1e3} us/call at "
+        f"{ADV_ENVS} x {ADV_SIZE}², {k3_plain_ms * 1e3} at {K3_ENVS} x {K3_SIZE}² (CUDA events)")
 
     step_tuple = env.stateless_step(adv_acts[0], reset_obs, reset_info)
     fresh_keys = rng.fold_in(reset_obs[1]["per_env_context"]["key"], 7)
@@ -1051,9 +981,9 @@ def main() -> int:
         f"of it the fresh states of every env {fresh_us} us); alexandridis kernel device "
         f"time {adv_kernel_ms * 1e3} us")
 
-    adv_run(env, reset_obs, reset_info, adv_acts[:2])  # warm
+    ki.adv_run(env, reset_obs, reset_info, adv_acts[:2])  # warm
     adv_prof = profile_steps(
-        lambda: adv_run(env, reset_obs, reset_info, adv_acts[:PROFILE_STEPS]), PROFILE_STEPS,
+        lambda: ki.adv_run(env, reset_obs, reset_info, adv_acts[:PROFILE_STEPS]), PROFILE_STEPS,
         f"Advanced stateless_step + conditional_reset {ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}", card)
 
     # 8. slice 3: the probes

@@ -12,9 +12,16 @@ Counterpart of ``gymca_tpu/envs/terrain.py``:
 * ``create_up_to_k_mappings`` for extension-combination action ids.
 
 Every field is drawn from ``(N, 2)`` key data with the JAX package's key
-chain, one env per key: the integer fields equal it bit for bit; altitude
-and slope go through transcendentals that round differently from XLA's by a
-few units in the last place.  The quirk of the reference is kept:
+chain, one env per key, and equals it bit for bit.  Altitude, slope and the
+Alexandridis ``exp_slope`` go through float32 ``cos``, ``arctan`` and
+``exp``, which XLA's CPU backend does not round correctly: :func:`xla_cos`,
+:func:`xla_atan` and :func:`xla_exp` reproduce its results (glibc's
+``cosf`` and ``atan2f(x, 1)``, which XLA calls, and XLA's own inlined
+``exp``) with plain torch ops, on the CPU and the card alike.  The divisions
+by constants are multiplications by the float32 reciprocal, as XLA folds
+them in the env's jitted terrain, and the hills' square root goes through
+float64 (torch's CPU float32 ``sqrt`` is not correctly rounded).  The quirk
+of the reference is kept:
 ``get_winds(use_hidden)``'s non-hidden branch is dead, all 8 directional
 matrices are returned regardless.
 """
@@ -42,11 +49,119 @@ __all__ = [
     "calc_pw",
     "create_up_to_k_mappings",
     "WIND_THETAS",
+    "xla_cos",
+    "xla_atan",
+    "xla_exp",
 ]
 
 MAX_PATCHES = 7  # the reference draws randint(4, 8) patches
 MAX_HILLS = 9  # randint(6, 10) hills
 MAX_SLOPES = 7  # randint(4, 8) slopes
+_RECIP_10 = float(np.float32(1.0) / np.float32(10.0))
+_RECIP_1414 = float(np.float32(1.0) / np.float32(1.414))
+
+
+# --- float32 transcendentals as the JAX package's CPU backend rounds them -----------
+
+# glibc's cosf (sysdeps/ieee754/flt-32/s_cosf.c, sincosf.h): double
+# arithmetic, a reduction by pi/2 and even/odd polynomials, rounded once.
+_COSF_C = tuple(map(float.fromhex, ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+                                     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")))
+_COSF_S = tuple(map(float.fromhex, ("-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+                                     "-0x1.994eb3774cf24p-13")))
+_COSF_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")  # 2 / pi * 2**24
+_COSF_HPI = float.fromhex("0x1.921FB54442D18p0")
+
+
+def _cos_poly(x2: torch.Tensor, sign) -> torch.Tensor:
+    x4 = x2 * x2
+    c2 = sign * _COSF_C[3] + x2 * (sign * _COSF_C[4])
+    c1 = sign * _COSF_C[0] + x2 * (sign * _COSF_C[1])
+    return (c1 + x4 * (sign * _COSF_C[2])) + (x4 * x2) * c2
+
+
+def _sin_poly(x: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    x3 = x * x2
+    s1 = _COSF_S[1] + x2 * _COSF_S[2]
+    return (x + x3 * _COSF_S[0]) + (x3 * x2) * s1
+
+
+def xla_cos(y: torch.Tensor) -> torch.Tensor:
+    """float32 ``cos`` as ``jnp.cos`` rounds it on the CPU (glibc 2.36's
+    ``cosf``), for |y| < 120: the terrain's hills feed it [0, pi/2).  Larger
+    arguments take glibc's slow reduction, not reproduced: torch's ``cos``."""
+    top = (y.view(torch.int32) >> 20) & 0x7FF  # glibc's abstop12
+    x = y.double()
+    small = _cos_poly(x * x, 1.0)
+    n = ((x * _COSF_HPI_INV).to(torch.int32) + 0x800000) >> 24  # the quadrant
+    r = x - n.double() * _COSF_HPI
+    sign = torch.where((n & 2) > 0, -1.0, 1.0).double()  # the table's sign
+    odd = (n & 1) > 0  # sine polynomial, of r * sign[n & 3]
+    reduced = torch.where(odd, _sin_poly(r * torch.where(odd, -sign, sign), r * r),
+                          _cos_poly(r * r, sign))
+    out = torch.where(top < 0x3F4, small, reduced).float()  # |y| < 0.75: no reduction
+    out = torch.where(top < 0x398, torch.ones_like(out), out)  # |y| < 2**-12
+    return torch.where(top < 0x42F, out, torch.cos(y))  # |y| < 120
+
+
+# glibc's atanf (sysdeps/ieee754/flt-32/s_atanf.c; atan2f(y, 1) calls it):
+# float32 arithmetic, constants as compiled into glibc 2.36's libm.
+_ATANF_HI = (0x3EED6338, 0x3F490FDA, 0x3F7B985E, 0x3FC90FDA)
+_ATANF_LO = (0x31AC3769, 0x33222168, 0x33140FB4, 0x33A22168)
+_ATANF_T = (0x3EAAAAAB, 0xBE4CCCCD, 0x3E124925, 0xBDE38E38, 0x3DBA2E6E, 0xBD9D8795,
+            0x3D886B35, 0xBD6EF16B, 0x3D4BDA59, 0xBD15A221, 0x3C8569D7)
+
+
+def xla_atan(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``arctan`` as ``jnp.arctan`` rounds it on the CPU: XLA lowers
+    it to ``atan2f(x, 1)``, which is glibc 2.36's ``atanf``; finite x."""
+    ix = x.view(torch.int32) & 0x7FFFFFFF
+    a = x.abs()
+    band = ((ix >= 0x3EE00000).int() + (ix >= 0x3F300000).int() + (ix >= 0x3F980000).int()
+            + (ix >= 0x401C0000).int()) - 1  # -1: |x| < 7/16; 0..3: the four reductions
+    xr = torch.where(band == 0, (2.0 * a - 1.0) / (a + 2.0), x)
+    xr = torch.where(band == 1, (a - 1.0) / (a + 1.0), xr)
+    xr = torch.where(band == 2, (a - 1.5) / (a * 1.5 + 1.0), xr)
+    xr = torch.where(band == 3, -1.0 / a, xr)
+    t = [rng._f32(b) for b in _ATANF_T]
+    z = xr * xr
+    w = z * z
+    s1 = t[10]
+    for c in t[8::-2]:
+        s1 = s1 * w + c
+    s2 = t[9]
+    for c in t[7::-2]:
+        s2 = s2 * w + c
+    s = s1 * z + s2 * w
+    small = xr - s * xr
+    hi, lo = (torch.full_like(x, rng._f32(tab[3])) for tab in (_ATANF_HI, _ATANF_LO))
+    for i in range(3):
+        hi = torch.where(band == i, rng._f32(_ATANF_HI[i]), hi)
+        lo = torch.where(band == i, rng._f32(_ATANF_LO[i]), lo)
+    big = hi - ((s * xr - lo) - xr)
+    big = torch.where(x < 0, -big, big)
+    return torch.where(ix < 0x31000000, x, torch.where(band < 0, small, big))
+
+
+# XLA's inlined float32 exp (a Cephes polynomial), with the multiply-adds
+# LLVM contracts into fused multiply-adds; constants as compiled.
+_EXPF_P = (0x39506967, 0x3AB743CE, 0x3C088908, 0x3D2AA9C1, 0x3E2AAAAA)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as ``jnp.exp`` rounds it on the CPU: equal on every
+    float32 in [-7.1, 7.1] (``exp(0.078 * slope)`` takes [-7.02, 7.02])."""
+    f = rng._f32
+    x = torch.clamp(x, min=f(0xC2AF999A), max=f(0x42B1999A))
+    fx = torch.floor(rng._fma(x, f(0x3FB8AA3B), 0.5)).clamp(-127.0, 127.0)
+    x = rng._fma(-fx, f(0x3F318000), x)
+    x = rng._fma(-fx, f(0xB95E8083), x)
+    y = rng._fma(f(_EXPF_P[0]), x, f(_EXPF_P[1]))
+    for c in _EXPF_P[2:]:
+        y = rng._fma(y, x, f(c))
+    y = rng._fma(y, x, 0.5)
+    y = rng._fma(y, x * x, x) + 1.0
+    return y * ((fx.int() + 127) << 23).view(torch.float32)
 
 
 def _scalar(keys, lo: int, hi: int) -> torch.Tensor:
@@ -108,8 +223,9 @@ def _altitude_field(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
         cc = _scalar(k[:, 1], 0, ncols).to(TYPE_BOX)
         radius = _scalar(k[:, 2], 2, max_radius).to(TYPE_BOX)
         height = rng.uniform(k[:, 3], (), minval=2.0, maxval=6.0)[:, None, None]
-        dist = torch.sqrt((rows - cr) ** 2 + (cols - cc) ** 2)
-        factor = torch.cos(dist / radius * math.pi / 2)
+        # float32 sqrt through float64: torch's CPU float32 sqrt is not correctly rounded
+        dist = torch.sqrt(((rows - cr) ** 2 + (cols - cc) ** 2).double()).float()
+        factor = xla_cos(dist / radius * math.pi / 2)
         bump = torch.where(dist < radius, height * factor, 0.0)
         alt = alt + torch.where(i < num_hills, bump, 0.0)
 
@@ -127,7 +243,9 @@ def _altitude_field(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
             height.to(TYPE_BOX), min=1.0)
         ramp = torch.where(inside, height_diff * progress, 0.0)
         alt = alt + torch.where(i < num_slopes, ramp, 0.0)
-    return (alt / 10.0).to(TYPE_BOX)
+    # / 10 as the env's jitted terrain computes it: XLA folds a division by a
+    # constant into a multiplication by its float32 reciprocal.
+    return (alt * _RECIP_10).to(TYPE_BOX)
 
 
 def init_altitude(key, nrows: int, ncols: int, num_envs: int) -> torch.Tensor:
@@ -170,8 +288,8 @@ def get_slope(altitude: torch.Tensor) -> torch.Tensor:
             neigh = padded[..., 1 + di:1 + di + h, 1 + dj:1 + dj + w]
             diff = altitude - neigh
             if di != 0 and dj != 0:
-                diff = diff / 1.414
-            row_entries.append(torch.rad2deg(torch.atan(diff)))
+                diff = diff * _RECIP_1414  # / 1.414, folded as XLA folds it
+            row_entries.append(torch.rad2deg(xla_atan(diff)))
         out.append(torch.stack(row_entries, dim=-1))
     slope = torch.stack(out, dim=-2)  # (..., H, W, 3, 3)
     rows = torch.arange(h, device=altitude.device)

@@ -28,6 +28,7 @@ import torch
 from gymca_torch import rng
 from gymca_torch.config import TYPE_BOX
 from gymca_torch.core.operator import Operator
+from gymca_torch.envs.terrain import xla_exp
 from gymca_torch.ops.stencil import (
     NEIGHBOR_OFFSETS,
     multi_box_sums,
@@ -167,7 +168,7 @@ class AlexandridisCA(Operator):
         ``exp(0.078 * slope)``, direction-major.  Stored in bfloat16: a static
         factor near 1 that the kernel streams once per step."""
         moved = slope.movedim((-2, -1), (-4, -3)).contiguous()
-        return torch.exp(SLOPE_COEFF * moved).to(torch.bfloat16)
+        return xla_exp(SLOPE_COEFF * moved).to(torch.bfloat16)
 
     @staticmethod
     def precompute_veg_den_factor(vegetation, density) -> torch.Tensor:

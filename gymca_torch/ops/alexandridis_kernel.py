@@ -46,7 +46,7 @@ from gymca_torch.ops.stencil import NEIGHBOR_OFFSETS, multi_box_sums, shift
 
 __all__ = ["alexandridis_fused_step", "alexandridis_fused_step_plain",
            "alexandridis_draws", "alexandridis_ignition", "alexandridis_rule",
-           "MAX_RADIUS", "ABLATIONS"]
+           "alexandridis_work", "MAX_RADIUS", "ABLATIONS"]
 
 MAX_RADIUS = 32  # kMaxRadius in the source
 _MAX_ENVS = 65535  # the launch's grid z extent
@@ -138,6 +138,50 @@ def alexandridis_fused_step_plain(grid, fire_age, dousing, vdf, exp_slope, wind_
         u, age_bits = alexandridis_draws(seeds, h, w)
     return alexandridis_rule(grid, fire_age, dousing, vdf, exp_slope, wind_rows, u,
                              age_bits, ablate=ablate, **kw)
+
+
+def alexandridis_work(x: dict, kw: dict) -> dict:
+    """Bytes the step must move and operations it must do on the inputs
+    ``x`` (the keyword tensors of :func:`alexandridis_fused_step`; ``kw`` its
+    other keywords), counted from the data, and the dense counts of a design
+    that treats every cell as a candidate.
+
+    A candidate is an on-grid tree with a burning Moore neighbour: only it
+    can ignite.  Bytes: every cell reads grid (1) and age (4) and writes grid
+    (1) and age (4); a cell within 2 of a candidate (the reach of its
+    dousing box) reads dousing (1); a candidate reads vdf (2) and the
+    exp_slope plane (2) of each burning neighbour; every env reads its wind
+    row (32) and seeds (16).  Dense: 29 bytes per cell (dousing, vdf and the
+    8 planes for every cell).  Integer operations: 4 per cell for the rule's compares
+    and selects; per candidate 77 for threefry2x32 (2 key adds, then 5 x (4
+    rounds of add, rotate, xor, and 3 key-schedule adds)), 3 per box sum of
+    the R + 2 boxes and 4 for the uniform and the age.  Float32 operations:
+    per candidate 2R for the heat, 3 for the dousing, 2 for the base and 2
+    for the threshold; 5 per burning direction of a candidate; 1 per burning
+    cell (its age).  Dense: the earlier count, every cell a candidate with 8
+    directions and 4 integer operations for the tables."""
+    grid = x["grid"]
+    n, h, w = grid.shape
+    r = len(kw["layer_coeffs"])
+    fire = grid == kw["fire"]
+    fire_i = fire.to(torch.int32)
+    dirs = sum(shift(fire_i, dr, dc, 0) for dr, dc in NEIGHBOR_OFFSETS)
+    cand = (grid == kw["tree"]) & (dirs > 0)
+    cells = n * h * w
+    n_cand = int(cand.sum())
+    reach = torch.nn.functional.max_pool2d(cand[:, None].float(), 5, stride=1, padding=2)
+    n_doused = int(reach.sum())
+    n_dirs = int(torch.where(cand, dirs, 0).sum())
+    n_burning = int(fire.sum())
+    return dict(
+        cells=cells, candidates=n_cand, candidate_directions=n_dirs, doused_cells=n_doused,
+        bytes=cells * 10 + n_doused + 2 * n_cand + 2 * n_dirs + n * 48,
+        int_ops=cells * 4 + n_cand * (77 + 3 * (r + 2) + 4),
+        float_ops=n_cand * (2 * r + 7) + 5 * n_dirs + n_burning,
+        dense_bytes=cells * 29 + n * 48,
+        dense_int_ops=cells * (77 + 3 * (r + 2) + 4 + 4),
+        dense_float_ops=cells * (2 * r + 3 + 2 + 5 * 8 + 2),
+    )
 
 
 @functools.cache

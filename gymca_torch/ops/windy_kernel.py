@@ -27,10 +27,11 @@ from gymca_torch.ops.windy import (
 )
 
 __all__ = ["windy_fused_step", "windy_fused_step_plain", "windy_weights_from_roll",
-           "shared_memory_bytes"]
+           "shared_memory_bytes", "CLUSTER_BLOCKS"]
 
 # The most dynamic shared memory an H100 block may use.
 _MAX_SHARED_BYTES = 232448
+CLUSTER_BLOCKS = 4  # kCluster in the source: row bands (blocks) per CA env
 
 
 def windy_weights_from_roll(wind: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:
@@ -50,8 +51,24 @@ def windy_weights_from_roll(wind: torch.Tensor, roll: torch.Tensor) -> torch.Ten
 
 
 def shared_memory_bytes(h: int, w: int) -> int:
-    """Shared memory of one kernel block: tree and fire bit masks."""
-    return 2 * 4 * h * ((w + 31) // 32)
+    """Shared memory of one CA-pass block: tree and fire bit masks of its row
+    band (``ceil(h / CLUSTER_BLOCKS)`` rows) and a halo row each side."""
+    return 2 * 4 * (-(-h // CLUSTER_BLOCKS) + 2) * ((w + 31) // 32)
+
+
+_scratch: dict = {}
+
+
+def _scratch_for(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's device scratch for ``n`` envs on one stream: a counter of
+    CA envs, a counter of finished clusters and ``n`` list slots, zero
+    between calls (each call leaves it as it found it).  Made once per
+    (device, stream, n), so a step adds no torch op for it."""
+    key = (device, stream, n)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(n + 2, dtype=torch.int32, device=device)
+    return buf
 
 
 def windy_fused_step_plain(grid, weights, params, edits, edit_counts, *,
@@ -109,7 +126,7 @@ def windy_fused_step_plain(grid, weights, params, edits, edit_counts, *,
 def _launcher():
     fn = _build.load("windy_sparse").windy_sparse_launch
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, c_int, ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ptr, c_int, ptr, ptr, ptr, ptr, ptr, ptr,
                    c_int, c_int, c_int, c_int, c_int, c_int, c_int, ptr]
     fn.restype = c_int
     return fn
@@ -137,7 +154,8 @@ def windy_fused_step(
     Grids hold only ``{empty, tree, fire}``; ``row, col`` lie on the grid.
 
     CPU tensors take :func:`windy_fused_step_plain`; CUDA tensors launch
-    the kernel (``windy_fused_step.launches`` counts the launches).
+    the kernel (``windy_fused_step.launches`` counts the calls; each issues
+    two device kernels, the light pass and the CA pass).
     """
     n, h, w = grid.shape
     dev = grid.device
@@ -173,13 +191,16 @@ def windy_fused_step(
 
     counts = torch.empty((n, 3), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch_for(n, dev, stream)
         err = _launcher()(
             grid.data_ptr(), grid.element_size(), weights.data_ptr(),
             params.data_ptr(), edits.data_ptr(), edit_counts.data_ptr(),
-            counts.data_ptr(), n, h, w, edits.shape[1], empty, tree, fire,
-            torch.cuda.current_stream(dev).cuda_stream,
+            counts.data_ptr(), scratch.data_ptr(), n, h, w, edits.shape[1], empty, tree,
+            fire, stream,
         )
     if err != 0:
+        _scratch.pop((dev, stream, n), None)  # a pass may not have run: not zero
         raise RuntimeError(f"windy_sparse kernel launch failed: CUDA error {err}")
     if n:
         windy_fused_step.launches += 1

@@ -12,7 +12,12 @@ after the script it stands for::
     python3 -m gymca_torch.probes.exp_kernel_overhead  # S3: envs per block
     python3 -m gymca_torch.probes.exp_floor            # S5: table and output shapes
 
-:mod:`~gymca_torch.probes.timing` is their shared timing harness.  The entry
+``python3 -m gymca_torch.probes.ab_parent --parent DIR`` times a parent
+tree's K1 and K2, through that tree's own wrappers, beside this tree's, in
+turns on one card, on the
+input sets of :mod:`~gymca_torch.probes.kernel_inputs` (shared with
+``chip_smoke.py``).  :mod:`~gymca_torch.probes.timing` is their shared
+timing harness.  The entry
 points run on the card and raise without one; their ``run`` functions take
 ``device="cpu"`` and then run the plain versions and measure nothing.
 """

@@ -17,8 +17,9 @@ bytes moved, nothing computed).  ``--tiled`` takes 8 envs at 512² (radius
 the card's name.
 
 The script's ``box_mode``s (``sat``, ``banded``, ``banded8``) have no
-counterpart: they were TPU schedules for the box sums, and the port's kernel
-has one design, summed-area tables in shared memory.
+counterpart: they were TPU schedules for the box sums; the port's kernel
+takes them from a summed-area table in shared memory in a tile with many
+candidate cells and from the staged fire rows' popcounts in a sparse one.
 """
 
 from __future__ import annotations

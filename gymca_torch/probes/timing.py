@@ -7,13 +7,15 @@ wait for the next launch (K1's idle floor read 24-44 µs that way and 4.81 µs
 from the kernel events on an H100).  :func:`time_launches` is the one
 policy for a kernel's time: host time per launch is the host clock to a
 ``torch.cuda.synchronize()``, the best of a few repetitions; device time
-per launch is the median of the repetitions' means, each repetition in a
-profiler session of its own.  On an H100 the profiler now and then loses
-some or all of a session's kernel events, and one session in a few dozen
-has read half the kernel's time that every other session read: a session
-that kept fewer than half of the launches, or more events than there were
-launches, is made again (up to three times), and the median hides one
-session that reads short.
+per launch is the median over the repetitions of the sum of each device
+kernel's mean, each repetition in a profiler session of its own.  On an
+H100 the profiler now and then loses some or all of a session's kernel
+events, and one session in a few dozen has read half the kernel's time that
+every other session read: a session in which a kernel kept fewer than half
+of its launches, or more events than there were launches, is made again (up
+to three times), and the median hides one session that reads short.  Each
+kernel's mean is taken from its own events, so a session that loses more of
+one kernel's events than another's is not biased towards the other.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import statistics
 import subprocess
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -40,9 +42,10 @@ def card() -> str:
     return out[torch.cuda.current_device()].strip()
 
 
-def kernel_durations_us(fn: Callable[[], object], kernel: str) -> List[float]:
-    """Device durations (µs), in launch order, of every launch of a kernel
-    whose name contains ``kernel`` during one call of ``fn``."""
+def kernel_durations_us(fn: Callable[[], object], kernel: str) -> Dict[str, List[float]]:
+    """Device durations (µs), by kernel name and in launch order, of every
+    launch of a kernel whose name contains ``kernel`` during one call of
+    ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,7 +56,10 @@ def kernel_durations_us(fn: Callable[[], object], kernel: str) -> List[float]:
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA and kernel in e.name),
                     key=lambda e: e.time_range.start)
-    return [e.time_range.elapsed_us() for e in events]
+    out: Dict[str, List[float]] = {}
+    for e in events:
+        out.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return out
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -82,31 +88,48 @@ def host_us(fn: Callable[[], object], reps: int = 20) -> float:
 
 def time_launches(run: Callable[[], object], launches: int, kernel: str, reps: int = 3,
                   reset: Optional[Callable[[], object]] = None) -> dict:
-    """Time ``run()``, which launches the kernel named ``kernel``
-    ``launches`` times.  ``reset()``, if given, restores the inputs before
-    every call, outside the host clock.  After one warm-up call, returns
-    device µs per launch, the median over ``reps`` repetitions of the mean
-    of the kernel events a profiler session kept (at least half of the
-    launches and at most all of them; another session is made, up to
-    ``SESSION_TRIES`` times, when one is not), the events each kept
-    session saw, and host µs per launch, the best of ``reps`` repetitions
-    of :func:`host_us`, with no profiler."""
+    """Time ``run()``, which makes ``launches`` calls, each launching once
+    every device kernel whose name contains ``kernel`` (K1's two passes, or
+    one kernel).  ``reset()``, if given, restores the inputs before every
+    call, outside the host clock.  A warm-up call in a profiler session
+    names the kernels.  Returns device µs per call, the median over ``reps``
+    repetitions of the sum of each kernel's mean event in a profiler session
+    (a session is kept when each of those kernels kept at least half of its
+    ``launches`` events and at most all of them, and no other kernel shows;
+    another is made, up to ``SESSION_TRIES`` times, when not), the events
+    each kept session saw, each kernel's median µs per call by name, and
+    host µs per call, the best of ``reps`` repetitions of :func:`host_us`,
+    with no profiler."""
     reset = reset or (lambda: None)
-    reset()
-    run()  # warm
-    host, device, seen = [], [], []
+    for _ in range(SESSION_TRIES):
+        reset()
+        names = sorted(kernel_durations_us(run, kernel))  # warm
+        if names:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no kernel named like {kernel} in "
+                           f"{SESSION_TRIES} warm-up calls")
+
+    def whole(us):
+        return sorted(us) == names and all(
+            launches <= 2 * len(v) and len(v) <= launches for v in us.values())
+
+    host, device, seen, means = [], [], [], []
     for _ in range(reps):
         reset()
         host.append(host_us(run, 1) / launches)
         for _ in range(SESSION_TRIES):
             reset()
             us = kernel_durations_us(run, kernel)
-            if launches <= 2 * len(us) and len(us) <= launches:
+            if whole(us):
                 break
         else:
-            raise RuntimeError(f"the profiler saw {len(us)} launches of {kernel}, "
-                               f"expected {launches}, in each of {SESSION_TRIES} sessions")
-        device.append(sum(us) / len(us))
-        seen.append(len(us))
+            raise RuntimeError(f"the profiler saw {({k: len(v) for k, v in us.items()})} "
+                               f"launches of {names}, expected {launches} of each, in each "
+                               f"of {SESSION_TRIES} sessions")
+        means.append({k: sum(v) / len(v) for k, v in us.items()})
+        device.append(sum(means[-1].values()))
+        seen.append(sum(len(v) for v in us.values()))
     return {"device_us": statistics.median(device), "host_us": min(host),
-            "launches": launches, "seen": seen}
+            "launches": launches, "seen": seen,
+            "kernels": {k: statistics.median(m[k] for m in means) for k in names}}

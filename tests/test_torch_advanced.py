@@ -6,8 +6,8 @@ envs start from the same state; inputs and actions are made with numpy from
 a seed.  The env on the XLA path must match bit for bit.  On the fused path
 the JAX kernel runs in Pallas interpret mode (its PRNG a zero stub) and the
 port's kernel draws are replaced by zeros (monkeypatched here).  Terrain
-fields that go through transcendentals are compared within the tolerances
-stated at each test: XLA may fuse and reorder them.
+fields that go through transcendentals are compared bit for bit too: the
+port reproduces the rounding of XLA's CPU ``cos``, ``arctan`` and ``exp``.
 """
 
 import functools
@@ -54,19 +54,59 @@ def test_patch_fields_equal_jax(field):
 
 
 def test_altitude_within_four_ulp():
-    key = jax.random.key(6)
-    want = np.asarray(jterrain.init_altitude(key, 24, 40, 3))
-    got = tterrain.init_altitude(torch_key(key), 24, 40, 3).numpy()
-    np.testing.assert_array_max_ulp(got, want, maxulp=4)
-    assert got.std() > 0.01
+    """Bit for bit (the name is from when it was within 4 ulp) with the JAX
+    altitude jitted, as the env builds its terrain: under ``jit`` XLA folds
+    ``/ 10`` into a multiply by the float32 reciprocal, which the port
+    reproduces.  At 256² the hills reach radius 63, so the cosine takes
+    arguments up to pi/2."""
+    for seed, (h, w, n) in ((6, (24, 40, 3)), (2, (256, 256, 1))):
+        key = jax.random.key(seed)
+        want = np.asarray(jax.jit(lambda k: jterrain.init_altitude(k, h, w, n))(key))
+        got = tterrain.init_altitude(torch_key(key), h, w, n).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got.std() > 0.01
 
 
 def test_slope_within_four_ulp_from_the_same_altitude():
+    """Bit for bit (the name is from when it was within 4 ulp) with the JAX
+    slope jitted, as the env builds it (``/ 1.414`` folded into a multiply)."""
     alt = np.asarray(jterrain.init_altitude(jax.random.key(7), 16, 24, 2))
-    want = np.asarray(jterrain.get_slope(jnp.asarray(alt)))
+    want = np.asarray(jax.jit(jterrain.get_slope)(jnp.asarray(alt)))
     got = tterrain.get_slope(torch.from_numpy(alt.copy())).numpy()
     assert got.shape == (2, 16, 24, 3, 3)
-    np.testing.assert_array_max_ulp(got, want, maxulp=4)
+    np.testing.assert_array_equal(got, want)
+
+
+def dense_float32(lo: float, hi: float, per_sign: int = 1 << 21) -> np.ndarray:
+    """About ``per_sign`` float32 values of each sign in [lo, hi], evenly
+    spaced in their bit patterns (so every binade is sampled alike), and the
+    bounds themselves."""
+    parts = [np.float32([lo, hi])]
+    for sign, a, b in ((1.0, max(lo, 0.0), hi), (-1.0, max(-hi, 0.0), -lo)):
+        if b > a:
+            bits = np.float32([a, b]).view(np.int32).astype(np.int64)
+            step = max((bits[1] - bits[0]) // per_sign, 1)
+            mags = np.arange(bits[0], bits[1] + 1, step).astype(np.int32).view(np.float32)
+            parts.append(sign * mags)
+    return np.concatenate(parts).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,lo,hi", [
+    ("cos", 0.0, float(np.float32(np.pi / 2))),  # the hills: dist / radius * pi / 2
+    ("atan", -10.0, 10.0),  # the slopes: altitude differences (altitude < 9)
+    ("exp", -7.1, 7.1),  # exp_slope: 0.078 * slope, slope in [-90, 90] degrees
+])
+def test_xla_transcendentals_equal_jax_on_the_terrain_range(name, lo, hi):
+    """:func:`xla_cos`, :func:`xla_atan` and :func:`xla_exp` against
+    ``jnp.cos``, ``jnp.arctan`` and ``jnp.exp`` on the CPU, bit for bit, on
+    2 M float32 values of each sign spread evenly over the bit patterns of
+    the range the terrain feeds each.  ``tests/xla_math_sweep.py`` checks
+    every value of the three ranges."""
+    x = dense_float32(lo, hi)
+    want = np.asarray(jax.jit(getattr(jnp, "arctan" if name == "atan" else name))(x))
+    got = getattr(tterrain, f"xla_{name}")(torch.from_numpy(x)).numpy()
+    assert x.size > 2_000_000
+    np.testing.assert_array_equal(got, want)
 
 
 def test_winds_tables_and_mappings_equal_jax():
@@ -269,20 +309,18 @@ def test_modf_mode_equals_jax():
 
 
 def test_terrain_drawn_from_the_key_matches_jax(jenv32, record_property):
-    """The port's own terrain bundle from the same key: integer fields and
-    the veg/density factor bit for bit, altitude within 4 float32 ulp,
-    exp_slope within one bf16 ulp (the count that differ is recorded)."""
+    """The port's own terrain bundle from the same key, every field bit for
+    bit (the count of exp_slope elements that differ is recorded: 0)."""
     tenv = TEnv(32, 32, key=torch_key(jenv32.starting_key), num_envs=4, device="cpu")
     mine, theirs = tenv._terrain_ctx, jenv32._terrain_ctx
     assert set(mine) == set(TERRAIN_KEYS)
     for k in ("density", "vegetation"):
         np.testing.assert_array_equal(mine[k].numpy(), np.asarray(theirs[k]))
     np.testing.assert_array_equal(bf16_ulps(mine["veg_den_factor"], theirs["veg_den_factor"]), 0)
-    np.testing.assert_array_max_ulp(mine["altitude"].numpy(), np.asarray(theirs["altitude"]),
-                                    maxulp=4)
+    np.testing.assert_array_equal(mine["altitude"].numpy(), np.asarray(theirs["altitude"]))
     diff = bf16_ulps(mine["exp_slope"], theirs["exp_slope"])
     record_property("exp_slope_elements_differing", int((diff > 0).sum()))
-    assert diff.max() <= 1
+    assert diff.max() == 0
     assert mine["exp_slope"].is_contiguous()
 
 

@@ -18,6 +18,7 @@ from gymca_torch.ops import alexandridis_kernel as ak
 from gymca_torch.ops import windy_kernel as wk
 from gymca_torch.ops.alexandridis import AlexandridisCA
 from gymca_torch.ops.stencil import telescoped_box_coeffs
+from gymca_torch.probes import kernel_inputs as ki
 
 EMPTY, TREE, FIRE = 0, 3, 25
 
@@ -79,7 +80,9 @@ def key_data(seed, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,h,w,dtype", [(64, 256, 256, np.int8), (16, 64, 128, np.int32),
                                          (16, 40, 50, np.int8), (8, 24, 36, np.int32),
-                                         (6, 512, 512, np.int8)])  # > 48 KiB of masks
+                                         (6, 512, 512, np.int8),
+                                         (2, 1024, 1024, np.int8),  # > 48 KiB of masks
+                                         (2, 1024, 1024, np.int32)])
 def test_kernel_matches_plain_on_the_card(cuda, n, h, w, dtype):
     classes = [("ca", "modify", "idle")[i % 3] for i in range(n)]
     inputs = make_inputs(6, n, h, w, dtype, 5, classes)
@@ -94,8 +97,33 @@ def test_kernel_matches_plain_on_the_card(cuda, n, h, w, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("classes,seams", [("mixed", True), ("ca", True), ("ca", False),
+                                           ("idle", False), ("modify", False)])
+@pytest.mark.parametrize("n,h,w,dtype", [(256, 256, 256, torch.int8), (32, 64, 128, torch.int32),
+                                         (32, 40, 50, torch.int8), (8, 3, 64, torch.int8)])
+def test_windy_kernel_on_band_seams_and_one_class_matches_plain(cuda, classes, seams, n, h, w,
+                                                                dtype):
+    """The CA pass's band seams (fire on both sides; edits, including halo
+    rows', and shots on a band's first and last row) and batches of one env
+    class, on int8 and int32 rows and rows of the cell-per-lane width; twice
+    in a row, since the kernel's scratch must come back to zero."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(41)
+    g, w_, p, e, c = ki.windy_inputs(n, h, w, dtype, 6, gen, device=cuda, classes=classes,
+                                     seams=seams)
+    for _ in range(2):
+        got = wk.windy_fused_step(g.clone(), w_, p, e, c, empty=EMPTY, tree=TREE, fire=FIRE)
+        want = wk.windy_fused_step_plain(g.clone(), w_, p, e, c, empty=EMPTY, tree=TREE,
+                                         fire=FIRE)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
 def test_wrapper_rejects_grids_past_shared_memory(cuda):
-    g = torch.zeros((1, 1024, 1024), dtype=torch.int8, device=cuda)
+    """A CA-pass block holds a row band (H / 4 rows and two halo rows) as
+    two bit masks: 66 rows of 1023 words pass the 227 KiB a block may use."""
+    assert wk.shared_memory_bytes(256, 32736) > 232448
+    g = torch.zeros((1, 256, 32736), dtype=torch.int8, device=cuda)
     w = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
     p = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -174,6 +202,24 @@ def test_alexandridis_kernel_matches_plain_on_the_card(cuda, n, h, w):
     pg, pa = ak.alexandridis_fused_step_plain(**x, **kw)
     assert torch.equal(g, pg) and torch.equal(a, pa)
     assert int(((g == 2) & (x["grid"] == 1)).sum()) > 0  # some trees ignited
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ki.K2_LAYOUTS)
+@pytest.mark.parametrize("n,h,w,radius", [(4, 256, 256, None), (2, 96, 200, None),
+                                          (4, 256, 256, 2), (2, 512, 512, None)])
+@pytest.mark.parametrize("ablate", ["", "prng"])
+def test_alexandridis_kernel_on_tile_layouts_matches_plain(cuda, layout, n, h, w, radius,
+                                                           ablate):
+    """The layouts that can break the tiling (fire on tile edges only, burning
+    tiles beside fire-free ones, fire only in a tile's 1-cell halo, all fire
+    and none), at radius 2 (halo 2), 6 and 7, ragged and whole tiles."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(40)
+    x, kw = ki.alexandridis_inputs(n, h, w, gen, device=cuda, layout=layout, radius=radius)
+    g, a = ak.alexandridis_fused_step(**x, **kw, ablate=ablate)
+    pg, pa = ak.alexandridis_fused_step_plain(**x, **kw, ablate=ablate)
+    assert torch.equal(g, pg) and torch.equal(a, pa)
 
 
 @pytest.mark.gpu

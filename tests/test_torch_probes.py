@@ -310,19 +310,22 @@ def test_floor_sweep_runs_on_the_cpu():
 
 
 def _fake_sessions(monkeypatch, sessions):
-    """Make ``timing.time_launches`` read ``sessions`` (lists of µs) as the
-    profiler's kernel events, one list per session, with no card."""
-    left = list(sessions)
+    """Make ``timing.time_launches`` read ``sessions`` as the profiler's
+    kernel events, one per profiled call (the warm-up's first), with no
+    card: a list of µs is one kernel "k"'s events, a dict maps names to
+    them."""
+    left = [s if isinstance(s, dict) else ({"k": s} if s else {}) for s in sessions]
     monkeypatch.setattr(timing.torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(timing, "kernel_durations_us", lambda run, kernel: left.pop(0))
     return left
 
 
 @pytest.mark.parametrize("sessions, device_us, seen", [
-    ([[2.0] * 4, [3.0] * 4, [5.0] * 4], 3.0, [4, 4, 4]),  # median of the three
-    ([[2.0] * 4, [1.0], [4.0] * 3, [5.0] * 4], 4.0, [4, 3, 4]),  # 1 of 4 is made again
-    ([[9.0] * 5, [2.0] * 4, [3.0] * 4, [4.0] * 4], 3.0, [4, 4, 4]),  # 5 of 4 is made again
-    ([[], [1.0], [2.0, 2.0], [3.0] * 4, [1.0] * 4], 2.0, [2, 4, 4]),  # half is enough
+    ([[9.0], [2.0] * 4, [3.0] * 4, [5.0] * 4], 3.0, [4, 4, 4]),  # median of the three
+    ([[9.0], [2.0] * 4, [1.0], [4.0] * 3, [5.0] * 4], 4.0, [4, 3, 4]),  # 1 of 4 made again
+    ([[9.0], [9.0] * 5, [2.0] * 4, [3.0] * 4, [4.0] * 4], 3.0, [4, 4, 4]),  # 5 of 4 too
+    ([[9.0], [], [1.0], [2.0, 2.0], [3.0] * 4, [1.0] * 4], 2.0, [2, 4, 4]),  # half is enough
+    ([[], [9.0], [2.0] * 4, [3.0] * 4, [5.0] * 4], 3.0, [4, 4, 4]),  # a warm-up made again
 ])
 def test_time_launches_keeps_whole_sessions_and_takes_the_median(monkeypatch, sessions,
                                                                   device_us, seen):
@@ -330,12 +333,33 @@ def test_time_launches_keeps_whole_sessions_and_takes_the_median(monkeypatch, se
     calls = []
     t = timing.time_launches(lambda: calls.append(1), 4, "k")
     assert (t["device_us"], t["seen"], t["launches"], left) == (device_us, seen, 4, [])
-    assert len(calls) == 4 and t["host_us"] >= 0  # a warm-up, then a host-timed call per rep
+    assert t["kernels"] == {"k": device_us} and t["host_us"] >= 0
+    assert len(calls) == 3  # a host-timed call per rep (the profiled calls are faked)
+
+
+def test_time_launches_adds_the_kernels_of_one_call(monkeypatch):
+    """Two device kernels per call (K1's light and CA passes): device µs per
+    call is the sum of each kernel's own mean, so a session that lost more of
+    one kernel's events than the other's reads the same; each kernel needs
+    half of its launches, and a session without one of them is made again."""
+    two = {"light": [1.0] * 4, "band": [5.0] * 4}
+    _fake_sessions(monkeypatch, [two,
+                                 {"light": [1.0] * 4, "band": [5.0] * 2},
+                                 {"light": [1.0] * 4},  # the band kernel's events lost
+                                 {"light": [1.0, 3.0], "band": [4.0] * 4},
+                                 {"light": [1.0] * 4, "band": [1.0]},  # 1 of 4
+                                 {"light": [1.0] * 4, "band": [7.0] * 4}])
+    t = timing.time_launches(lambda: None, 4, "k")
+    assert (t["device_us"], t["seen"]) == (6.0, [6, 6, 8])
+    assert t["kernels"] == {"band": 5.0, "light": 1.0}
 
 
 def test_time_launches_raises_when_no_session_holds(monkeypatch):
-    _fake_sessions(monkeypatch, [[1.0] * 4, [], [1.0], [1.0] * 9])
+    _fake_sessions(monkeypatch, [[9.0], [1.0] * 4, [], [1.0], [1.0] * 9])
     with pytest.raises(RuntimeError, match="in each of 3 sessions"):
+        timing.time_launches(lambda: None, 4, "k")
+    _fake_sessions(monkeypatch, [[], [], []])
+    with pytest.raises(RuntimeError, match="warm-up"):
         timing.time_launches(lambda: None, 4, "k")
 
 
@@ -362,3 +386,105 @@ def test_entry_points_ask_for_the_card(name):
         mod.run()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mod.main([])
+
+
+# --- the kernels' input sets and the parent-tree timing ----------------------------------
+
+
+@pytest.mark.parametrize("classes", ["mixed", "ca", "idle", "modify"])
+def test_windy_inputs_make_the_env_classes_asked_for(classes):
+    from gymca_torch.ops.windy_kernel import CLUSTER_BLOCKS
+    from gymca_torch.probes import kernel_inputs as ki
+
+    gen = torch.Generator().manual_seed(3)
+    n, h, w, k = 200, 40, 64, 5
+    grid, weights, params, edits, counts = ki.windy_inputs(n, h, w, torch.int8, k, gen,
+                                                           device="cpu", classes=classes,
+                                                           seams=True)
+    do_ca, shoot = params[:, 0] > 0, params[:, 3] > 0
+    assert set(grid.unique().tolist()) <= set(ki.WINDY_CELLS)
+    assert {"ca": bool(do_ca.all()), "idle": not (do_ca | shoot).any(),
+            "modify": not do_ca.any() and bool(shoot.any()),
+            "mixed": bool(do_ca.any() and (~do_ca & shoot).any() and (~do_ca & ~shoot).any())
+            }[classes]
+    band = -(-h // CLUSTER_BLOCKS)
+    rows = torch.cat([params[:, 1], (edits & 0xFFFF).flatten()])
+    assert bool(((rows % band == 0) | (rows % band == band - 1)).all())  # on band seams
+    assert bool(((edits >> 16) < w).all()) and bool((counts <= k).all())
+
+
+def test_alexandridis_input_layouts_put_fire_where_they_say():
+    from gymca_torch.probes import kernel_inputs as ki
+
+    gen = torch.Generator().manual_seed(4)
+    fire = {lay: ki.alexandridis_inputs(2, 128, 256, gen, device="cpu", layout=lay)[0]["grid"] == 2
+            for lay in ki.K2_LAYOUTS}
+    r, c = torch.arange(128)[:, None], torch.arange(256)[None, :]
+    edge = (r % 32 == 0) | (r % 32 == 31) | (c % 64 == 0) | (c % 64 == 63)
+    assert fire["tile_edges"].any() and not (fire["tile_edges"] & ~edge).any()
+    assert not (fire["checker_tiles"] & ((r // 32 + c // 64) % 2 == 1)).any()
+    assert fire["checker_tiles"].any()
+    # tile (1, 1), rows 32-63 and columns 64-127: no fire inside, fire in its halo
+    halo = fire["halo_only"][:, 31:65, 63:129]
+    assert not halo[:, 1:-1, 1:-1].any() and halo[:, 0].all() and halo[:, :, 0].all()
+    assert fire["all_fire"].all() and not fire["no_fire"].any()
+
+
+def test_k1_work_counts_the_env_classes():
+    from gymca_torch.probes import kernel_inputs as ki
+
+    grid = torch.zeros((4, 8, 32), dtype=torch.int8)
+    params = torch.tensor([[1, 0, 0, 1], [0, 1, 1, 1], [0, 0, 0, 0], [1, 2, 2, 0]],
+                          dtype=torch.int32)
+    counts = torch.tensor([3, 9, 9, 7], dtype=torch.int32)
+    moved, ops, n_ca, n_mod, n_edits = ki.k1_work(grid, params, counts, 5)
+    assert (n_ca, n_mod, n_edits) == (2, 1, 3 + 5)
+    assert moved == 4 * 28 + 2 * (36 + 2 * 8 * 32) + 4 * 8 + 2
+    assert ops == 2 * 8 * 32 * ki.OPS_PER_CELL
+
+
+def test_ab_parent_asks_for_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gymca_torch.probes import ab_parent
+
+    with pytest.raises(RuntimeError, match="card"):
+        ab_parent.main(["--parent", str(tmp_path)])
+
+
+def test_ab_parent_loads_a_tree_beside_this_one(tmp_path):
+    """``tree_wrappers`` on a copy of this tree: the wrappers come from the
+    copy's files, this process's modules are back in place afterwards, and
+    on CPU tensors the copy's wrappers give what this tree's give."""
+    import shutil
+    import sys
+    from pathlib import Path
+
+    import gymca_torch.ops.windy_kernel as wk
+    from gymca_torch.probes import ab_parent
+    from gymca_torch.probes import kernel_inputs as ki
+
+    with pytest.raises(FileNotFoundError):
+        ab_parent.tree_wrappers(tmp_path)
+    here = Path(ak.__file__).parents[1]
+    shutil.copytree(here, tmp_path / "gymca_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    before = dict(sys.modules)
+    fns = ab_parent.tree_wrappers(tmp_path)
+    assert {k: m for k, m in sys.modules.items() if k.startswith("gymca_torch")} == \
+        {k: m for k, m in before.items() if k.startswith("gymca_torch")}
+    assert str(tmp_path) not in sys.path
+    for name, fn in fns.items():
+        assert Path(fn.__globals__["__file__"]).is_relative_to(tmp_path), name
+    assert fns["K1"] is not wk.windy_fused_step and fns["K2"] is fns["K3"]
+
+    gen = torch.Generator().manual_seed(3)
+    inputs = ki.windy_inputs(6, 16, 32, torch.int8, 4, gen, device="cpu")
+    assert ab_parent.k1_err(fns["K1"], inputs) == 0
+    x, kw = ki.alexandridis_inputs(2, 16, 24, gen, device="cpu")
+    assert ab_parent.k2_err(fns["K2"], x, kw) == 0
+    empty, tree, fire = ki.WINDY_CELLS
+    got = fns["K1"](inputs[0].clone(), *inputs[1:], empty=empty, tree=tree, fire=fire)
+    want = wk.windy_fused_step(inputs[0].clone(), *inputs[1:], empty=empty, tree=tree,
+                               fire=fire)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -119,8 +119,74 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_shared_memory_bytes():
-    assert wk.shared_memory_bytes(256, 256) == 16384
-    assert wk.shared_memory_bytes(40, 50) == 2 * 4 * 40 * 2
+    """A CA-pass block stages its row band (ceil(H / 4) rows) and a halo row
+    each side as two bit masks."""
+    assert wk.CLUSTER_BLOCKS == 4
+    assert wk.shared_memory_bytes(256, 256) == 2 * 4 * (64 + 2) * 8
+    assert wk.shared_memory_bytes(40, 50) == 2 * 4 * (10 + 2) * 2
+    assert wk.shared_memory_bytes(3, 64) == 2 * 4 * (1 + 2) * 2
+    # the card's cases that need the opt-in past 48 KiB a block
+    assert wk.shared_memory_bytes(1024, 1024) == 2 * 4 * (256 + 2) * 32 > 48 * 1024
+
+
+def test_scratch_is_zero_and_made_once_per_stream_and_size():
+    a = wk._scratch_for(5, torch.device("cpu"), 0)
+    assert a.dtype == torch.int32 and a.shape == (7,) and not a.any()
+    assert wk._scratch_for(5, torch.device("cpu"), 0) is a
+    assert wk._scratch_for(5, torch.device("cpu"), 1) is not a
+    assert wk._scratch_for(6, torch.device("cpu"), 0).shape == (8,)
+
+
+def band_step(inputs):
+    """The CA pass's partition emulated on the CPU: each of the
+    ``CLUSTER_BLOCKS`` blocks of an env stages rows [r0 - 1, r1 + 1) of the
+    grid as it was, replays the edits that fall in them, and steps its band
+    [r0, r1) from that copy alone; counts are the bands' sums."""
+    grid, weights, params, edits, edit_counts = (torch.tensor(x) for x in inputs)
+    n, h, w = grid.shape
+    out = grid.clone().to(torch.int32)
+    counts = torch.zeros((n, 3), dtype=torch.int32)
+    band = -(-h // wk.CLUSTER_BLOCKS)
+    success = torch.zeros((n, 3, 3), dtype=torch.bool)
+    for i, (dr, dc) in enumerate(NEIGHBOR_OFFSETS):
+        success[:, 1 - dr, 1 - dc] = weights[:, i] > 0
+    for e in range(n):
+        do_ca, row, col, shoot = (int(v) for v in params[e])
+        if not do_ca:
+            if shoot and out[e, row, col] == TREE:
+                out[e, row, col] = EMPTY
+                counts[e, 2] = 1
+            continue
+        for rank in range(wk.CLUSTER_BLOCKS):
+            r0 = min(rank * band, h)
+            r1 = min(r0 + band, h)
+            rs, re = max(r0 - 1, 0), min(r1 + 1, h)
+            staged = grid[e, rs:re].to(torch.int32).clone()
+            for wrd in edits[e, :min(int(edit_counts[e]), edits.shape[1])].tolist():
+                r, c = wrd & 0xFFFF, wrd >> 16
+                if rs <= r < re and 0 <= c < w:
+                    staged[r - rs, c] = EMPTY
+            new = wk.windy_step_from_success(staged[None], success[e:e + 1], empty=EMPTY,
+                                             tree=TREE, fire=FIRE)[0][r0 - rs:r1 - rs]
+            if shoot and r0 <= row < r1 and new[row - r0, col] == TREE:
+                new[row - r0, col] = EMPTY
+                counts[e, 2] = 1
+            out[e, r0:r1] = new
+            counts[e, 0] += int((new == TREE).sum())
+            counts[e, 1] += int((new == FIRE).sum())
+    return out, counts
+
+
+@pytest.mark.parametrize("n,h,w,dtype", [(9, 64, 64, np.int8), (6, 40, 50, np.int32),
+                                         (6, 3, 64, np.int8), (6, 33, 96, np.int8)])
+def test_band_partition_equals_the_plain_version(n, h, w, dtype):
+    """Bands, halo rows and edits in halo rows as the CA pass cuts them:
+    together they give the plain version's grid and counts."""
+    inputs = make_inputs(7, n, h, w, dtype, 5, ["ca", "modify", "idle"] * (n // 3))
+    got_grid, got_counts = band_step(inputs)
+    want_grid, want_counts = run_plain(inputs)
+    np.testing.assert_array_equal(got_grid.numpy(), want_grid.numpy().astype(np.int32))
+    np.testing.assert_array_equal(got_counts.numpy(), want_counts.numpy())
 
 
 def test_build_of_a_missing_source_raises():
