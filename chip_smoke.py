@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Three paths, each carried by kernels written by hand in CUDA:
+Four paths, carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -12,7 +12,10 @@ Three paths, each carried by kernels written by hand in CUDA:
   Alexandridis kernel (K2/K3, ``gymca_torch/csrc/alexandridis.cu``);
 * slice 3: the probes' entry points (``gymca_torch/probes/``), carried by
   ``ca_variants.cu`` (four kernels), ``dma_floor.cu``, ``probe_floor.cu`` and
-  the Alexandridis kernel's ablation instances.
+  the Alexandridis kernel's ablation instances;
+* slice 5: the PPO trainer (``gymca_torch/agents/``) on the Advanced env at
+  ``scripts/run``'s defaults, 8 envs at 256², carried by the Alexandridis
+  kernel (one launch per env step) beside cuDNN's convs.
 
 Phases, each fatal on failure:
 
@@ -80,8 +83,29 @@ Phases, each fatal on failure:
    against its plain version at every launch configuration it times), the
    counters zeroed before and read after; their times, the new kernels'
    bounds and plain versions;
-9. one JSON line describing every kernel, and one per path;
-10. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+9. slice 5, ``[train]``: (a) ``scripts/run``'s defaults through
+   ``gymca_torch.run``'s ``parse_args`` and ``build_env`` (8 envs at 256²,
+   ``single`` mode, uint8 obs, the fused kernel, the full-width network):
+   ``train()`` for 2 iterations of 128 steps, 4 epochs of 4 minibatches,
+   the launch counters zeroed before and read after (2 x 128 Alexandridis
+   launches), the kernel's inputs recorded at the first and last launch of
+   each iteration and each held against its plain version (tolerance 0),
+   finite metrics, params moved; then one more iteration split
+   into its rollout and its GAE + update, each under
+   ``set_sync_debug_mode("error")`` and timed; env step against policy
+   forward; a profiler trace of 4 rollout steps and of one update (the
+   phase fails if either shows no device time); peak
+   memory beside what was held before.  (b) round 5's pipeline flags (``scripts/sweep_r5_kickstart256.sh``:
+   bf16, centroid features, the three shaping terms, 1 BC iteration, 1
+   critic-warmup iteration, kickstart 1.0) at ``single`` mode, cut to 8 envs
+   x 16 steps x 3 iterations: the critic-only iteration leaves torso and
+   actor bit-identical.  (c) the trained weights on the card and on the CPU
+   on the same observations, float32 with TF32 off (rtol 1e-4, atol 1e-5),
+   and the difference TF32 makes.  (d) ``train_iteration`` twice from one
+   carry at (b)'s size, float32 defaults and (b)'s flags: whether metrics
+   and params agree bit for bit (reported, not a failure);
+10. one JSON line describing every kernel, one per path, and ``{"train": ...}``;
+11. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -116,6 +140,17 @@ DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
 # 1000 (bench_fused_ca, exp_floor, exp_counts_out) and 120 (the others).
 PROBE_S6_STEPS, PROBE_FLOOR_STEPS = 100, 100
 CA_VARIANT_LINES = {"banded": 39, "bool": 49, "fma": 94, "swar": 141}  # exp_ca_variants.py
+# Slice 5: the trainer.  (a) scripts/run's defaults (scripts/run:42-127), 2
+# iterations; (b) round 5's pipeline flags (scripts/sweep_r5_kickstart256.sh)
+# at single mode, cut from 32 envs x 128 steps x 1500 iterations (300 BC,
+# 150 warmup) to 8 envs x 16 steps x 3 iterations (1 BC, 1 warmup).
+TRAIN_ARGV = ["-n", "8", "-z", "256"]
+TRAIN_ITERS, TRAIN_PROFILE_STEPS, TRAIN_SPLIT_STEPS = 2, 4, 8
+PIPELINE_ARGV = TRAIN_ARGV + ["--num-ppo-steps", "16", "--bf16", "--centroid-features",
+                              "--shape-tree-coef", "20", "--shape-dist-coef", "2",
+                              "--shape-douse-coef", "20", "--bc-iters", "1",
+                              "--critic-warmup-iters", "1", "--kickstart-coef", "1.0"]
+PIPELINE_ITERS = 3
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
@@ -627,7 +662,271 @@ def profile_steps(run, steps, label, card):
         log(f"[profile]   {e.device_time_total / steps:10.1f} us/step "
             f"{e.count / steps:8.1f} launches/step "
             f"{100 * e.device_time_total / busy:5.1f}%  {e.key[:90]}")
-    return {"kernels_per_step": len(spans) / steps, "idle_share": idle}
+    return {"kernels_per_step": len(spans) / steps, "idle_share": idle,
+            "busy_us_per_step": busy / steps, "span_us_per_step": span / steps}
+
+
+# --- slice 5: the trainer --------------------------------------------------------------
+
+
+def params_equal(a, b, groups):
+    return all(torch.equal(a[g][k], b[g][k]) for g in groups for k in a[g])
+
+
+def finite(metrics):
+    return all(math.isfinite(v) for v in metrics.values())
+
+
+def train_phase(card):
+    """(a)-(d) of the ``[train]`` phase (module docstring, phase 9)."""
+    from gymca_torch import rng
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+    from gymca_torch.run import args_to_structured_args, build_env, parse_args
+
+    t_phase = time.perf_counter()
+    counters = (alexandridis_fused_step, windy_fused_step)
+
+    def trainer_for(argv):
+        args = args_to_structured_args(parse_args(argv))
+        env = build_env(args)
+        if not env.use_fused_ca:
+            fail("the trainer's env does not take the fused kernel on the card")
+        return PPOTrainer(env, args, key=rng.key(args.exp.seed)), args
+
+    def fresh_carry(tr, state=None):
+        obs, info = tr.env.reset()
+        n = tr.args.env.num_envs
+        return (state or tr.agent_state, EpisodeStatistics.create(n), obs,
+                torch.zeros(n, dtype=torch.bool, device="cuda"), info, tr.key)
+
+    # (a) scripts/run's defaults: train() for 2 iterations
+    tr, args = trainer_for(TRAIN_ARGV)
+    steps = args.exp.num_ppo_steps
+    log(f"[train] (a) scripts/run defaults: {args.env.num_envs} envs at {args.env.size}², "
+        f"{steps} steps, {args.ppo.update_epochs} epochs of {args.ppo.num_minibatches} "
+        f"minibatches of {args.minibatch_size}; params {tr.param_counts}; convs at torch's "
+        f"default precision on the card (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), "
+        f"dense layers float32 (cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32})")
+    start_params = tr.agent_state.params
+    torch.cuda.synchronize()
+    held_mib = torch.cuda.memory_allocated() / 2**20  # earlier phases' tensors and the trainer
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    # the kernel's inputs at the first and last launch of each iteration
+    keep = {0, steps - 1, steps, TRAIN_ITERS * steps - 1}
+    t0 = time.perf_counter()
+    with ki.alexandridis_recorder(keep) as train_recorded:
+        state, history = tr.train(num_iterations=TRAIN_ITERS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k2_launches, k1_launches = (c.launches for c in counters)
+    log(f"[train] (a) train(): {TRAIN_ITERS} iterations in {train_s:.2f}s, {k2_launches} "
+        f"alexandridis launches ({k1_launches} windy); SPS "
+        + ", ".join(str(h["SPS"]) for h in history) + "; last metrics "
+        + json.dumps(history[-1]))
+    if k2_launches != TRAIN_ITERS * steps:
+        fail(f"expected {TRAIN_ITERS * steps} alexandridis launches in train(), got "
+             f"{k2_launches}")
+    if not all(finite(h) for h in history):
+        fail("the trainer's metrics are not finite")
+    groups = tuple(state.params)
+    if all(params_equal({g: start_params[g]}, {g: state.params[g]}, (g,)) for g in groups):
+        fail("train() left the params where they started")
+    k2_err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in train_recorded)
+    log(f"[kernel] alexandridis on the trainer's inputs ({len(train_recorded)} launches of "
+        f"train() recorded, at steps {sorted(keep)}): max_abs_err {k2_err} (tolerance 0, "
+        f"grid and age)")
+    if len(train_recorded) != len(keep) or k2_err != 0:
+        fail("alexandridis disagrees with its plain version on the trainer's inputs")
+
+    # one more iteration, rollout and GAE + update apart, each with no host sync
+    carry = fresh_carry(tr, state)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        after, storage = tr.rollout(*carry)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        new_state, losses, _, _ = tr.learn(after[0], after[2], after[3], storage, after[5])
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rollout_ms, update_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    if alexandridis_fused_step.launches != steps:
+        fail(f"expected {steps} alexandridis launches in the rollout, got "
+             f"{alexandridis_fused_step.launches}")
+    if not all(torch.isfinite(v) for v in losses.values()):
+        fail("the update's losses are not finite")
+    log(f"[train] (a) [{card}] one iteration under sync_debug_mode=error in both parts: "
+        f"rollout {rollout_ms} ms ({steps} steps, {alexandridis_fused_step.launches} "
+        f"alexandridis launches), GAE + update {update_ms} ms")
+
+    # env step against policy forward, each to a synchronize
+    obs, info, key = carry[2], carry[4], carry[5]
+    env_s = pol_s = 0.0
+    for _ in range(TRAIN_SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        action, _, _, key = tr.get_action_and_value(new_state, obs, key)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = tr.env.conditional_reset(tr.env.stateless_step(action, obs, info), action)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        obs, info = out[0], out[4]
+        pol_s, env_s = pol_s + t1 - t0, env_s + t2 - t1
+    env_ms, pol_ms = env_s * 1e3 / TRAIN_SPLIT_STEPS, pol_s * 1e3 / TRAIN_SPLIT_STEPS
+    log(f"[train] (a) [{card}] a rollout step, host clock to a synchronize, mean of "
+        f"{TRAIN_SPLIT_STEPS}: env step (stateless_step + conditional_reset) {env_ms} ms, "
+        f"policy forward and sampling {pol_ms} ms")
+
+    # profiles: TRAIN_PROFILE_STEPS rollout steps and one GAE + update; an
+    # iteration composed of them, the rollout's per-step numbers times its steps
+    short = tr.args.exp.num_ppo_steps
+    tr.args.exp.num_ppo_steps = TRAIN_PROFILE_STEPS
+    try:
+        roll_prof = profile_steps(lambda: tr.rollout(*carry), TRAIN_PROFILE_STEPS,
+                                  f"trainer rollout {args.env.num_envs} x {args.env.size}²",
+                                  card)
+    finally:
+        tr.args.exp.num_ppo_steps = short
+    upd_prof = profile_steps(lambda: tr.learn(after[0], after[2], after[3], storage, after[5]),
+                             1, f"trainer GAE + update over {args.batch_size} samples", card)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if roll_prof is None or upd_prof is None:
+        fail("the profiler saw no device time in the trainer's rollout or update")
+    kernels = roll_prof["kernels_per_step"] * steps + upd_prof["kernels_per_step"]
+    busy = roll_prof["busy_us_per_step"] * steps + upd_prof["busy_us_per_step"]
+    span = roll_prof["span_us_per_step"] * steps + upd_prof["span_us_per_step"]
+    iteration = {"kernels_per_iteration": kernels, "idle_share": 1.0 - busy / span,
+                 "device_busy_ms_per_iteration": busy / 1e3,
+                 "rollout_kernels_per_step": roll_prof["kernels_per_step"],
+                 "rollout_idle_share": roll_prof["idle_share"],
+                 "update_kernels": upd_prof["kernels_per_step"],
+                 "update_idle_share": upd_prof["idle_share"]}
+    log(f"[train] (a) [{card}] an iteration composed from {TRAIN_PROFILE_STEPS} traced "
+        f"rollout steps x {steps} and the traced update: {kernels} device kernels, device "
+        f"busy {busy / 1e3} ms, idle share {iteration['idle_share']}")
+    rec_mib = sum(t.numel() * t.element_size() for x, _ in train_recorded
+                  for t in x.values()) / 2**20
+    log(f"[train] (a) [{card}] peak memory allocated {peak_mib} MiB, {held_mib} MiB of it "
+        f"held before train() (the earlier phases' tensors, the trainer's params) and "
+        f"{rec_mib} MiB the recorded kernel inputs; (a) took "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # (b) round 5's pipeline flags, cut
+    ptr, pargs = trainer_for(PIPELINE_ARGV)
+    pargs.exp.checkpoint_every = 1
+
+    class Recorder:
+        """Stands in for a checkpoint manager: keeps each iteration's state."""
+
+        def __init__(self):
+            self.states = {}
+
+        def save_state(self, step, agent_state, key):
+            self.states[step] = agent_state
+
+    rec = Recorder()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    bc = ptr.bc_pretrain(pargs.exp.bc_iters)
+    cloned = ptr.agent_state.params
+    _, p_hist = ptr.train(num_iterations=PIPELINE_ITERS, checkpoint_manager=rec)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    p_steps = pargs.exp.num_ppo_steps
+    want = (pargs.exp.bc_iters + PIPELINE_ITERS) * p_steps
+    log(f"[train] (b) round 5's pipeline at single mode, {pargs.env.num_envs} envs x {p_steps} "
+        f"steps x {PIPELINE_ITERS} iterations (cut from 32 x 128 x 1500, BC 300 -> "
+        f"{pargs.exp.bc_iters}, warmup 150 -> {pargs.exp.critic_warmup_iters}): {p_s:.2f}s, "
+        f"{alexandridis_fused_step.launches} alexandridis launches; BC {json.dumps(bc)}; "
+        f"losses " + ", ".join(f"{h['loss']}" for h in p_hist))
+    if alexandridis_fused_step.launches != want:
+        fail(f"expected {want} alexandridis launches in the pipeline, got "
+             f"{alexandridis_fused_step.launches}")
+    if not finite(bc) or not all(finite(h) for h in p_hist):
+        fail("the pipeline's metrics are not finite")
+    warm = rec.states[1].params
+    frozen = params_equal(cloned, warm, ("network_params", "actor_params"))
+    critic_moved = not params_equal(cloned, warm, ("critic_params",))
+    actor_moved = not params_equal(warm, rec.states[PIPELINE_ITERS].params, ("actor_params",))
+    log(f"[train] (b) after the critic-only iteration torso and actor bit-identical: {frozen}; "
+        f"critic moved: {critic_moved}; the actor moved in the kickstart iterations: "
+        f"{actor_moved}")
+    if not (frozen and critic_moved and actor_moved):
+        fail("the critic-warmup iteration did not freeze torso and actor alone")
+
+    # (c) card against CPU on the trained weights and the same observations
+    cpu_params = {g: {k: v.cpu() for k, v in d.items()} for g, d in state.params.items()}
+    grid = carry[2][0]
+
+    def heads(params, g):
+        hidden = tr._torso(params, g, None)
+        return [hidden] + tr._actor_logits(params, hidden) + [tr._value(params, hidden)]
+
+    with torch.no_grad():
+        want_cpu = heads(cpu_params, grid.cpu())
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got_f32 = heads(state.params, grid)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        got_default = heads(state.params, grid)
+
+    def err(got):
+        return max((g.cpu() - w).abs().max().item() for g, w in zip(got, want_cpu))
+
+    bad = [i for i, (g, w) in enumerate(zip(got_f32, want_cpu))
+           if not torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-5)]
+    f32_err, default_err = err(got_f32), err(got_default)
+    log(f"[train] (c) network, heads and value on {grid.shape[0]} observations at "
+        f"{args.env.size}², card against CPU: float32 with TF32 off max_abs_err {f32_err} "
+        f"(rtol 1e-4, atol 1e-5); at the trainer's default precision {default_err}")
+    if bad:
+        fail(f"the networks on the card differ from the CPU beyond tolerance: outputs {bad}")
+
+    log(f"[train] (b) and (c) done at {time.perf_counter() - t_phase:.1f}s")
+
+    # (d) determinism at (b)'s size
+    def twice(t):
+        c = fresh_carry(t)
+        a, b = t.train_iteration(*c), t.train_iteration(*c)
+        same_m = all(torch.equal(a[-1][k], b[-1][k]) for k in a[-1])
+        return same_m, params_equal(a[0].params, b[0].params, tuple(a[0].params))
+
+    dtr, _ = trainer_for(TRAIN_ARGV + ["--num-ppo-steps", "16"])
+    det = {"float32_defaults": twice(dtr), "pipeline_flags": twice(ptr)}
+    log(f"[train] (d) train_iteration twice from one carry at {pargs.env.num_envs} envs x "
+        f"{p_steps} steps, (metrics, params) bit for bit: {det}")
+    log(f"[train] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {
+        "card": card, "envs": args.env.num_envs, "size": args.env.size, "steps": steps,
+        "iterations": TRAIN_ITERS, "samples_per_s": history[-1]["SPS"],
+        "sps_per_iteration": [h["SPS"] for h in history],
+        "alexandridis_launches": k2_launches, "alexandridis_recorded_launches":
+        len(train_recorded), "alexandridis_max_abs_err": k2_err, "rollout_ms": rollout_ms,
+        "update_ms": update_ms, "env_step_ms": env_ms, "policy_ms": pol_ms, **iteration,
+        "peak_memory_mib": peak_mib, "memory_held_before_mib": held_mib,
+        "memory_recorded_inputs_mib": rec_mib,
+        "card_vs_cpu_float32_max_abs_err": f32_err,
+        "card_vs_cpu_default_precision_max_abs_err": default_err,
+        "conv_tf32": torch.backends.cudnn.allow_tf32,
+        "deterministic": {k: {"metrics": v[0], "params": v[1]} for k, v in det.items()},
+    }
 
 
 # --- main ----------------------------------------------------------------------------
@@ -989,7 +1288,11 @@ def main() -> int:
     # 8. slice 3: the probes
     probe_kernels = probe_phase(card, gen, adv_recorded)
 
-    # 9-10. result lines
+    # 9. slice 5: the trainer
+    train = train_phase(card)
+    adv_max_err = max(adv_max_err, train["alexandridis_max_abs_err"])
+
+    # 10-11. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -1016,10 +1319,14 @@ def main() -> int:
         "library_ms": None,
     }] + probe_kernels
     log(json.dumps({"kernels": kernels}))
+    old_keys = ("kernels_per_step", "idle_share")
     if prof is not None:
-        log(json.dumps({"step": {"env_steps_per_sec": best[0], **prof}}))
+        log(json.dumps({"step": {"env_steps_per_sec": best[0],
+                                 **{k: prof[k] for k in old_keys}}}))
     if adv_prof is not None:
-        log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best[0], **adv_prof}}))
+        log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best[0],
+                                          **{k: adv_prof[k] for k in old_keys}}}))
+    log(json.dumps({"train": train}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -1,8 +1,8 @@
-"""Env state carried between the JAX package and the port, as numpy arrays.
+"""State and weights carried between the JAX package and the port, as numpy
+arrays.
 
-The envs have no weights: what crosses between ``gymca_tpu`` and
-``gymca_torch`` is the batched state.  The JAX side hands over its leaves as
-numpy arrays (keys as ``jax.random.key_data(...)``, uint32):
+The JAX side hands over its leaves as numpy arrays (keys as
+``jax.random.key_data(...)``, uint32):
 
 * the windy Bulldozer's ``EnvState``: :func:`env_state_from_numpy` builds the
   port's state from them on a given device, :func:`env_state_to_numpy` gives
@@ -12,7 +12,12 @@ numpy arrays (keys as ``jax.random.key_data(...)``, uint32):
   bfloat16 leaves (``exp_slope``, ``veg_den_factor``) travel bit for bit as
   their 16-bit words: numpy holds JAX's as ``ml_dtypes.bfloat16``, which
   torch does not take, so they go through a ``uint16`` view, and come back
-  as ``uint16`` words (``.view(jnp.bfloat16)`` on the JAX side).
+  as ``uint16`` words (``.view(jnp.bfloat16)`` on the JAX side);
+* the PPO trainer's params, ``{"network_params", "actor_params",
+  "critic_params"}``, each a flax tree ``{"params": {...}}``:
+  :func:`ppo_params_from_numpy` and :func:`ppo_params_to_numpy`.  Conv
+  kernels go HWIO -> OIHW and Dense kernels (in, out) -> (out, in); the
+  torso flattens in NHWC order as flax does, so no row is permuted.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from gymca_torch.config import resolve_device
 from gymca_torch.core.env import EnvState
 
 __all__ = ["env_state_from_numpy", "env_state_to_numpy", "advanced_obs_from_numpy",
-           "advanced_obs_to_numpy"]
+           "advanced_obs_to_numpy", "ppo_params_from_numpy", "ppo_params_to_numpy"]
 
 _BF16_KEYS = ("exp_slope", "veg_den_factor")
 
@@ -133,3 +138,53 @@ def advanced_obs_to_numpy(obs, info):
         "time": host(context["time"]),
     }
     return host(rgb), out, {k: host(v) for k, v in info.items()}
+
+
+_PPO_GROUPS = ("actor_params", "critic_params", "network_params")
+
+
+def _flat_flax(tree, prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if hasattr(v, "items"):  # a dict or a flax FrozenDict
+            yield from _flat_flax(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def ppo_params_from_numpy(tree, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's params (``PPOTrainer``'s ``agent_state.params``) from the
+    JAX trainer's: ``{group: {state-dict name: tensor}}`` in flax's leaf
+    order, float32 on ``device`` (the card unless the caller names another)."""
+    dev = resolve_device(device)
+    out = {}
+    for group in _PPO_GROUPS:
+        leaves = {}
+        for path, v in _flat_flax(tree[group]["params"]):
+            a = np.asarray(v)
+            if path[-1] == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = ".".join(path[:-1] + ("weight" if path[-1] == "kernel" else path[-1],))
+            leaves[name] = torch.tensor(np.ascontiguousarray(a), device=dev)
+        out[group] = leaves
+    return out
+
+
+def ppo_params_to_numpy(params) -> Dict[str, Dict[str, object]]:
+    """The JAX trainer's params tree, as numpy arrays, from the port's:
+    the inverse of :func:`ppo_params_from_numpy`, bit for bit."""
+    out = {}
+    for group in _PPO_GROUPS:
+        tree: Dict[str, object] = {}
+        for name, t in params[group].items():
+            *mods, leaf = name.split(".")
+            a = t.detach().cpu().numpy()
+            if leaf == "weight":
+                leaf = "kernel"
+                a = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
+            node = tree
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = a
+        out[group] = {"params": tree}
+    return out

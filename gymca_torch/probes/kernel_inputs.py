@@ -7,7 +7,8 @@ Shared by ``chip_smoke.py`` and :mod:`gymca_torch.probes.ab_parent`:
   ones, fire only in a tile's halo, edits and shots on band seams);
 * the main paths driven with random actions, and the kernel's inputs
   recorded at each launch (:func:`record_windy_launches`,
-  :func:`record_alexandridis_launches`);
+  :func:`record_alexandridis_launches`, or :func:`alexandridis_recorder`
+  around any code that steps the Advanced env, such as the trainer);
 * :func:`k1_work`, the bytes and operations K1 must move and do on given
   inputs (K2's count is ``alexandridis_kernel.alexandridis_work``).
 
@@ -16,13 +17,16 @@ Everything is made on ``device`` ("cuda" unless the caller says otherwise).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from gymca_torch.ops.windy_kernel import CLUSTER_BLOCKS
 
 __all__ = ["OPS_PER_CELL", "k1_work", "windy_inputs", "draw_actions", "run_steps",
            "record_windy_launches", "alexandridis_inputs", "alexandridis_keywords",
-           "adv_actions", "adv_run", "record_alexandridis_launches", "WINDY_CELLS",
+           "adv_actions", "adv_run", "alexandridis_recorder",
+           "record_alexandridis_launches", "WINDY_CELLS",
            "K2_LAYOUTS"]
 
 WINDY_CELLS = (0, 3, 25)  # empty, tree, fire of the windy env's grids
@@ -208,22 +212,34 @@ def adv_run(env, obs, info, actions):
     return obs, info, step
 
 
-def record_alexandridis_launches(env, obs, info, actions):
-    """Step the Advanced path and keep copies of the kernel's inputs at each
-    launch: a list of ``(x, kw)``."""
+@contextlib.contextmanager
+def alexandridis_recorder(keep=None):
+    """While open, keep copies of the Advanced env's kernel inputs at each
+    launch whose index (0 for the first launch inside the block) is in
+    ``keep``, or at every launch if ``keep`` is None.  Yields the list of
+    ``(x, kw)`` it fills."""
     import gymca_torch.envs.advanced as advanced
 
     real = advanced.alexandridis_fused_step
-    recorded = []
+    recorded, seen = [], [0]
 
     def recorder(*args, **kw):
-        names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
-        recorded.append(({k: t.clone() for k, t in zip(names, args)}, kw))
+        if keep is None or seen[0] in keep:
+            names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
+            recorded.append(({k: t.clone() for k, t in zip(names, args)}, kw))
+        seen[0] += 1
         return real(*args, **kw)
 
     advanced.alexandridis_fused_step = recorder
     try:
-        adv_run(env, obs, info, actions)
+        yield recorded
     finally:
         advanced.alexandridis_fused_step = real
+
+
+def record_alexandridis_launches(env, obs, info, actions):
+    """Step the Advanced path and keep copies of the kernel's inputs at each
+    launch: a list of ``(x, kw)``."""
+    with alexandridis_recorder() as recorded:
+        adv_run(env, obs, info, actions)
     return recorded

@@ -1,21 +1,22 @@
 """``jax.random``'s key chain in torch, bit for bit.
 
-The env draws randomness where the JAX package does (the reset in
-``BulldozerCore.initial_state`` and each step's gust roll), and those draws
+The envs draw randomness where the JAX package does (the reset in
+``BulldozerCore.initial_state`` and each step's gust roll), and so does the
+PPO trainer (its Gumbel action draws and minibatch shuffles); those draws
 must match the reference exactly.  This module reproduces jax 0.9.0's
 ``threefry2x32`` PRNG with ``jax_threefry_partitionable=True`` and x64 off
 (``jax/_src/prng.py``: ``threefry_split``, ``threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``: ``_uniform``,
-``_randint``, ``choice`` with ``p``).
+``_randint``, ``choice`` with ``p``, ``_shuffle``).
 
 Keys are ``(..., 2)`` tensors of key data: the two uint32 words of a jax key,
 held in int64 (torch's uint32 arithmetic is incomplete on both CPU and CUDA)
 and wrapped to 32 bits explicitly after every operation that can carry.
 Every function is vectorised over the leading key dimensions.
 
-Inputs that no reference draw has to reproduce (a policy's actions, test
-noise) come from a ``torch.Generator`` instead: this chain costs hundreds of
-small kernels per call.
+Inputs that no reference draw has to reproduce (random actions in the
+smoke, test noise) come from a ``torch.Generator`` instead: this chain
+costs hundreds of small kernels per call.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ __all__ = [
     "uniform",
     "randint",
     "exponential",
+    "xla_log",
+    "permutation",
     "choice",
 ]
 
@@ -122,11 +125,28 @@ def uniform(keys: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
     scale = float(np.float32(maxval) - np.float32(minval))
     if (lo, scale) == (0.0, 1.0):
         return floats
-    # XLA fuses floats * scale + lo into one multiply-add; the float64 product
-    # of two float32 values is exact, so one float64 add and the cast to
-    # float32 round as that fused operation does (but for double-rounding
-    # ties).
-    return torch.clamp((floats.double() * scale + lo).float(), min=lo)
+    # XLA fuses floats * scale + lo into one multiply-add, which rounds once.
+    return torch.clamp(_fma_f32(floats.double() * scale, lo), min=lo)
+
+
+def _fma_f32(p: torch.Tensor, c: float) -> torch.Tensor:
+    """float32 ``p + c`` rounded once from the exact sum, for float64 ``p``
+    exact (a product of two float32 values) and float32 ``c``.
+
+    The float64 sum ``s`` rounds, and where it lands on a float32 halfway
+    point the cast would tie to even whichever side the exact sum lay on.
+    There the TwoSum error ``e`` says which side: ``s`` moves one float64
+    step toward it first.  Results below float32's normal range are not
+    handled (no caller draws them)."""
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    # halfway: the 29 float64 mantissa bits a float32 drops are 1 followed
+    # by zeros
+    halfway = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    toward = torch.where(e > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where(halfway & (e != 0), torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -192,9 +212,15 @@ def _log1p_neg(u: torch.Tensor) -> torch.Tensor:
         num = _fma(-num, u, _f32(c))
     u2 = u * u
     small = (u2 * -0.5 + (u2 * -u) * (num / den)) - u
-    # elsewhere: log(1 - u), the mantissa in [sqrt(1/2), sqrt(2)) and the
-    # exponent e, as log(m) + e * ln 2 with ln 2 split in two.
-    bits = torch.clamp(1.0 - u, min=_f32(0x00800000)).view(torch.int32)
+    return torch.where(u.abs() < _f32(_LOG1P_SMALL), small, _logf(1.0 - u))
+
+
+def _logf(v: torch.Tensor) -> torch.Tensor:
+    """The Cephes-style float32 ``log`` of XLA's CPU backend for normal
+    ``v > 0`` (smaller values are read as the least normal): the mantissa m
+    in [sqrt(1/2), sqrt(2)) and the exponent e, as log(m) + e * ln 2 with
+    ln 2 split in two."""
+    bits = torch.clamp(v, min=_f32(0x00800000)).view(torch.int32)
     mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
     below = mant < _f32(_LOGF_SQRTHF)
     e = ((bits >> 23) & 0xFF).to(torch.float32) - 126.0 - below.to(torch.float32)
@@ -203,14 +229,43 @@ def _log1p_neg(u: torch.Tensor) -> torch.Tensor:
     x_cubed = z * x
     p = [_fma(_fma(x, _f32(c0), _f32(c1)), x, _f32(c2)) for c0, c1, c2 in _LOGF_P]
     y = _fma(_fma(_fma(p[0], x_cubed, p[1]), x_cubed, p[2]), x_cubed, e * _f32(_LOGF_Q1))
-    large = ((x - z * 0.5) + y) + e * _f32(_LOGF_Q2)
-    return torch.where(u.abs() < _f32(_LOG1P_SMALL), small, large)
+    return ((x - z * 0.5) + y) + e * _f32(_LOGF_Q2)
+
+
+def xla_log(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` rounded as XLA's CPU backend rounds ``jnp.log``, for
+    zero, infinity and normal ``v > 0``: equal on all 2**23 values a uniform
+    draw takes and on their negated logs (a Gumbel draw's two logs).
+    torch's own ``log`` differs from it in the last bit on about one value
+    in seven of those."""
+    out = torch.where(v == 0, -math.inf, _logf(v))
+    return torch.where(torch.isinf(v), v, out)
 
 
 def exponential(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """float32 Exp(1) draws (``random.py::_exponential``): ``-log1p(-u)``
     with ``log1p`` as XLA's CPU backend rounds it."""
     return -_log1p_neg(uniform(keys, shape))
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a permutation of ``0 .. n-1``
+    (int64, on the key's device) for one ``(2,)`` key.
+
+    ``random.py::_shuffle``: ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each a
+    split, 32 random bits per element and a stable sort of the elements by
+    them.  An array of any rank is permuted along its first axis with the
+    same key by indexing with this permutation: JAX's 1-D shuffle sorts the
+    values by the same bits, and a stable sort moves values as it moves
+    indices."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_M32)))
+    perm = torch.arange(n, dtype=torch.int64, device=keys.device)
+    for _ in range(rounds):
+        pair = split(keys)
+        keys = pair[0]
+        order = torch.sort(random_bits(pair[1], (n,)), stable=True).indices
+        perm = perm[order]
+    return perm
 
 
 @functools.lru_cache(maxsize=64)

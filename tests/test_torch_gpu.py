@@ -354,3 +354,94 @@ def test_probe_entry_points_run_on_the_card(cuda):
     rows = floor_kernel.run_variants([FloorVariant("f", 256, 32, 16, 4, staged=True)], 3,
                                      cuda, reps=1, h=4, w=4)
     assert rows[0]["device_us"] > 0
+
+
+# --- the PPO trainer ------------------------------------------------------------------------
+
+
+def trainer_args(n, size, steps, **exp_kw):
+    from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs, PPOArgs
+
+    return Args(ppo=PPOArgs(num_minibatches=2, update_epochs=2),
+                env=EnvArgs(num_envs=n, size=size),
+                exp=ExperimentArgs(total_timesteps=n * steps * 4, num_ppo_steps=steps, seed=3,
+                                   **exp_kw))
+
+
+@pytest.mark.gpu
+def test_train_iteration_on_the_card(cuda):
+    """One ``train_iteration`` at 4 envs x 64², 8 steps, on the fused env:
+    one Alexandridis launch per env step, the rollout with no host sync,
+    finite metrics, the params moved."""
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+
+    n, steps = 4, 8
+    env = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(0), num_envs=n)
+    trainer = PPOTrainer(env, trainer_args(n, 64, steps))
+    assert env.use_fused_ca and trainer.device.type == "cuda"
+    obs, info = env.reset()
+    carry = (trainer.agent_state, EpisodeStatistics.create(n), obs,
+             torch.zeros(n, dtype=torch.bool, device=cuda), info, trainer.key)
+    trainer.rollout(*carry)  # warm: cuDNN and the kernel build
+    torch.cuda.synchronize()
+    before = ak.alexandridis_fused_step.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.rollout(*carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ak.alexandridis_fused_step.launches == before + steps
+    before = ak.alexandridis_fused_step.launches
+    out = trainer.train_iteration(*carry)
+    assert ak.alexandridis_fused_step.launches == before + steps
+    assert all(torch.isfinite(v).all() for v in out[-1].values())
+    moved = [not torch.equal(a, b) for g in out[0].params
+             for a, b in zip(out[0].params[g].values(), carry[0].params[g].values())]
+    assert any(moved)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [64, 256])
+def test_networks_on_the_card_match_the_cpu(cuda, size):
+    """The same weights on the card and on the CPU, float32 with TF32 off:
+    hidden, logits and value within rtol 1e-4, atol 1e-5."""
+    from gymca_torch.agents.networks import Actor, Critic, Network
+
+    gen = torch.Generator().manual_seed(size)
+    mods = [Network(size, size, generator=gen), Actor(128, (9, 2), ((2, 1),), generator=gen),
+            Critic(128, generator=gen)]
+    grid = torch.from_numpy(np.random.default_rng(size).integers(0, 256, (2, size, size, 3),
+                                                                  dtype=np.uint8))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            outs = []
+            for dev in ("cpu", cuda):
+                net, actor, critic = (m.to(dev) for m in mods)
+                hidden = net(grid.to(dev))
+                outs.append([hidden] + actor(hidden) + [critic(hidden)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for c, g in zip(*outs):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    from gymca_torch.agents.checkpoint import CheckpointManager
+    from gymca_torch.agents.ppo import PPOTrainer
+
+    env = AdvancedForestFireBulldozerEnv(16, 128, key=rng.key(0), num_envs=2)
+    trainer = PPOTrainer(env, trainer_args(2, 16, 4))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save_state(2, trainer.agent_state, trainer.key, env_carry={"obs": env.reset()[0][0]})
+    fresh = PPOTrainer(env, trainer_args(2, 16, 4), key=rng.key(99))
+    state, key, carry = mgr.restore_state(fresh.agent_state, fresh.key,
+                                          env_carry={"obs": None})
+    assert key.device.type == "cuda" and torch.equal(key, trainer.key)
+    assert carry["obs"].device.type == "cuda"
+    for g, leaves in trainer.agent_state.params.items():
+        for k, v in leaves.items():
+            assert state.params[g][k].device.type == "cuda"
+            assert torch.equal(state.params[g][k], v)

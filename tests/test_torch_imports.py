@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX, no gymca_tpu, no flax or optax anywhere in
-``gymca_torch/`` (its probes included) or ``chip_smoke.py``, and gymnasium
-only in the on-demand adapter module ``gymca_torch/gym_env.py``.
+"""The port stands alone: no JAX, no gymca_tpu, no flax, optax or orbax
+anywhere in ``gymca_torch/`` (its probes and trainer included) or
+``chip_smoke.py``, and gymnasium only in the on-demand adapter module
+``gymca_torch/gym_env.py``.
 
 This process already imported jax at start-up, so ``sys.modules`` cannot
 show what the port imports: every source is parsed with ``ast`` instead.
@@ -14,11 +15,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax", "orbax")
 GYM_ADAPTER = ROOT / "gymca_torch" / "gym_env.py"
 PROBES = ("timing", "ca_variants_kernel", "dma_floor_kernel", "floor_kernel",
           "exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
           "exp_kernel_overhead", "exp_floor")
+AGENTS = ("args", "networks", "optim", "ppo", "checkpoint")
 
 
 def imported_modules(path: Path):
@@ -42,6 +44,9 @@ def test_port_sources_exist():
     assert "gymca_torch/ops/alexandridis_kernel.py" in names
     assert "gymca_torch/envs/advanced.py" in names
     assert "chip_smoke.py" in names
+    for mod in AGENTS:
+        assert f"gymca_torch/agents/{mod}.py" in names
+    assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
 
@@ -71,6 +76,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     "gymca_torch.ops.alexandridis_kernel", "gymca_torch.envs.terrain",
     "gymca_torch.envs.extensions", "gymca_torch.envs.advanced", "gymca_torch.probes",
     *(f"gymca_torch.probes.{p}" for p in PROBES),
+    "gymca_torch.agents", *(f"gymca_torch.agents.{m}" for m in AGENTS), "gymca_torch.run",
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
