@@ -71,18 +71,29 @@ Phases, each fatal on failure:
    the step (device kernels per step, idle share, time by kernel);
 8. slice 3: the four windy-CA formulations against their plain versions step
    by step and against each other (tolerance 0) over 40 steps at (256, 256,
-   256) and 10 steps at (8, 64, 128), (4, 40, 52) and (4, 40, 50), where the
-   swar wrapper must raise; ``dma_floor`` against its plain version at (64,
-   256, 256) and (8, 512, 512); each Alexandridis ablation against its
-   plain version at (64, 256, 256) and (8, 512, 512), the shapes it is
+   256), 3 at (4096, 256, 256), 5 at (2, 512, 512) and 10 at (8, 64, 128),
+   (4, 40, 52) and (4, 40, 50), where the swar wrapper must raise;
+   ``dma_floor`` against its plain version at (64, 256, 256) and (8, 512,
+   512); each Alexandridis ablation against its plain version at (64, 256,
+   256) and (8, 512, 512), the shapes it is
    timed at, and the default instance again on recorded main-path launches
-   (its ptxas line is checked at the build); then the entry points ``exp_ca_variants``, ``bench_fused_ca``
+   (its ptxas line is checked at the build); then the entry points
+   ``exp_ca_variants`` (at 256 and at 4096 envs), ``bench_fused_ca``
    (64 x 256² and 8 x 512², 100 launches per repetition),
    ``exp_counts_out``, ``exp_launch_floor``, ``exp_kernel_overhead`` and
    ``exp_floor`` (100 launches per repetition; each checks ``probe_floor``
    against its plain version at every launch configuration it times), the
    counters zeroed before and read after; their times, the new kernels'
-   bounds and plain versions;
+   bounds and plain versions: S4 at 256 and 4096 envs of 256², each
+   formulation against the busiest SM pipe for its inner loop's SASS
+   (``cuobjdump -sass`` of this build) and, at 4096 envs, where the grid
+   no longer fits in L2, the larger of that and its bytes, with its share
+   of the bound; and their order; the floor family beside
+   ``F.pad(table[:, 4:6], (0, counts_w - 2))`` where that computes its
+   counts; S3 at 4096 envs a block beside the launch floor plus its bytes
+   at the rate one SM reaches, the faster of two loaders: one block of the
+   bulk-copy engine (``one_sm_copy``) and the probe's own kernel over
+   65,536 envs, each timed against a launch that moves next to nothing;
 9. slice 5, ``[train]``: (a) ``scripts/run``'s defaults through
    ``gymca_torch.run``'s ``parse_args`` and ``build_env`` (8 envs at 256²,
    ``single`` mode, uint8 obs, the fused kernel, the full-width network):
@@ -140,6 +151,17 @@ DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
 # 1000 (bench_fused_ca, exp_floor, exp_counts_out) and 120 (the others).
 PROBE_S6_STEPS, PROBE_FLOOR_STEPS = 100, 100
 CA_VARIANT_LINES = {"banded": 39, "bool": 49, "fma": 94, "swar": 141}  # exp_ca_variants.py
+# S4 beside the script's 256 envs: K1's all-CA size, 4096 x 256² (256 MiB of
+# grid, past the 50 MB L2), where its bytes bound is read, and a 512² grid.
+# (The script's 40 steps a repetition there too: in sessions of 4 or 10
+# launches of 0.2-0.7 ms the profiler kept too few kernel events.)
+S4_BIG_ENVS = 4096
+# S3's one-SM rate: one block walks this many envs (an 8-wide table, 4
+# counts), timed against the same launch that reads and writes nothing; and
+# one block copies this many bytes with the bulk-copy engine, timed against
+# a copy of one 16 KiB chunk (and, beside S3, a copy moving S3's bytes).
+S3_STREAM_ENVS = 65536
+S3_COPY_BYTES, S3_COPY_SMALL = 1536 * 1024, 16 * 1024
 # Slice 5: the trainer.  (a) scripts/run's defaults (scripts/run:42-127), 2
 # iterations; (b) round 5's pipeline flags (scripts/sweep_r5_kickstart256.sh)
 # at single mode, cut from 32 envs x 128 steps x 1500 iterations (300 BC,
@@ -386,11 +408,64 @@ def check_dma_floor(x):
     return err
 
 
+def library_us(fn, calls):
+    """Device µs per call of ``fn``, one PyTorch call, from the profiler's
+    kernel events (every device kernel it launches), as a kernel is timed."""
+    from gymca_torch.probes.timing import time_launches
+
+    return time_launches(lambda: [fn() for _ in range(calls)], calls, "")["device_us"]
+
+
+def sm_clock_hz():
+    """The SM clock's maximum, as ``nvidia-smi`` reports it."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.split()
+    return float(out[torch.cuda.current_device()]) * 1e6
+
+
+def s4_loops():
+    """Each S4 formulation's bulk-form inner loop in the SASS of this build
+    (cuobjdump -sass): the innermost loop around its 16-byte stores."""
+    from gymca_torch import _build
+    from gymca_torch.probes import sass
+    from gymca_torch.probes.ca_variants_kernel import VARIANTS
+
+    fns = sass.functions(sass.cuobjdump_sass(_build.build(["ca_variants"])["ca_variants"].path))
+    out = {}
+    for v in VARIANTS:
+        inst = [f for name, f in fns.items() if f"ca_{v}_kernelILb1E" in name]
+        out[v] = sass.inner_loop(inst[0], "STG.E.128") if len(inst) == 1 else None
+        if out[v] is None:
+            fail(f"no inner loop with a 16-byte store in the SASS of ca_{v}_kernel<true>")
+    return out
+
+
+def s4_bounds(n, h, w, loop, sms, clock_hz):
+    """S4's bounds (ms) for one step of n envs: bytes (the grid read and
+    written, weights and counts) at 3.35 TB/s, and each pipe's time for the
+    loop's instructions on every 4-cell word (``sass.clocks_per_item``, 4
+    words a 16-byte store) on every SM at ``clock_hz``.  Returns
+    ``(bytes_ms, {pipe: ms}, bytes)``."""
+    from gymca_torch.probes import sass
+
+    words = n * h * w / 4
+    moved = 2 * n * h * w + n * (32 + 8)
+    per_word = sass.clocks_per_item(loop, 4 * loop.marked)
+    sm_s = sms * clock_hz
+    return (moved / HBM_BYTES_PER_S * 1e3,
+            {p: c * words / sm_s * 1e3 for p, c in per_word.items()}, moved)
+
+
 def probe_phase(card, gen, adv_recorded):
     """Slice 3: every probe kernel against its plain version, the Alexandridis
     ablations, then the probes' entry points driven with the launch counters
     zeroed before and read after, and each new kernel's times.  Returns the
     new kernels' entries of the ``kernels`` line."""
+    import torch.nn.functional as F
+
     from gymca_torch.ops.alexandridis_kernel import (
         ABLATIONS,
         alexandridis_fused_step,
@@ -403,19 +478,31 @@ def probe_phase(card, gen, adv_recorded):
         exp_floor,
         exp_kernel_overhead,
         exp_launch_floor,
+        floor_kernel,
     )
-    from gymca_torch.probes.ca_variants_kernel import PLAIN, VARIANTS, ca_variant_step
+    from gymca_torch.probes.ca_variants_kernel import (
+        PLAIN,
+        VARIANTS,
+        ca_variant_step,
+    )
     from gymca_torch.probes.dma_floor_kernel import dma_floor, dma_floor_plain, moved_bytes
+    from gymca_torch.probes.floor_kernel import (
+        FloorVariant,
+        one_sm_copy,
+        probe_floor,
+        probe_floor_plain,
+    )
     from gymca_torch.probes.floor_kernel import moved_bytes as floor_bytes
-    from gymca_torch.probes.floor_kernel import probe_floor, probe_floor_plain
-    from gymca_torch.probes.timing import cuda_ms
+    from gymca_torch.probes.timing import cuda_ms, time_launches
 
     t0 = time.perf_counter()
 
     # Kernels against their plain versions (launches not counted).
     ca_err = dict.fromkeys(VARIANTS, 0)
     for n, h, w, steps in ((exp_ca_variants.N, exp_ca_variants.H, exp_ca_variants.W,
-                            exp_ca_variants.STEPS), (8, 64, 128, 10), (4, 40, 52, 10),
+                            exp_ca_variants.STEPS), (S4_BIG_ENVS, exp_ca_variants.H,
+                                                     exp_ca_variants.W, 3),
+                           (2, 512, 512, 5), (8, 64, 128, 10), (4, 40, 52, 10),
                            (4, 40, 50, 10)):
         for v, e in check_ca_variants(n, h, w, steps).items():
             ca_err[v] = max(ca_err[v], e)
@@ -452,6 +539,7 @@ def probe_phase(card, gen, adv_recorded):
         ca_variant_step.launches[v] = 0
     dma_floor.launches = probe_floor.launches = alexandridis_fused_step.launches = 0
     ca_rows = {r["variant"]: r for r in exp_ca_variants.run("cuda")}
+    ca_big = {r["variant"]: r for r in exp_ca_variants.run("cuda", n=S4_BIG_ENVS)}
     bench = bench_fused_ca.run("cuda", size=ADV_SIZE, envs=ADV_ENVS, steps=PROBE_S6_STEPS)
     bench_tiled = bench_fused_ca.run("cuda", size=K3_SIZE, envs=K3_ENVS, steps=PROBE_S6_STEPS)
     floor_rows = {}  # each entry point checks every launch configuration it times
@@ -461,18 +549,47 @@ def probe_phase(card, gen, adv_recorded):
     launches = {**{f"ca_variant_{v}": ca_variant_step.launches[v] for v in VARIANTS},
                 "dma_floor": dma_floor.launches, "probe_floor": probe_floor.launches,
                 "alexandridis (4 instances)": alexandridis_fused_step.launches}
-    log(f"[probe] entry points exp_ca_variants, bench_fused_ca at {ADV_ENVS} x {ADV_SIZE}² and "
+    log(f"[probe] entry points exp_ca_variants (and at {S4_BIG_ENVS} envs), "
+        f"bench_fused_ca at {ADV_ENVS} x {ADV_SIZE}² and "
         f"{K3_ENVS} x {K3_SIZE}² ({PROBE_S6_STEPS} launches per repetition), exp_counts_out, "
         f"exp_launch_floor, exp_kernel_overhead, exp_floor ({PROBE_FLOOR_STEPS} launches per "
         f"repetition): launches {launches}")
     if not all(launches.values()):
         fail(f"a probe kernel was never launched on the probes' path: {launches}")
 
-    for r in ca_rows.values():
-        log(f"[time] [{card}] ca_{r['variant']}: {r['device_us']} us/step of device time "
-            f"({r['device_us'] * 1e3 / exp_ca_variants.N} ns/grid), host {r['host_us']} "
-            f"us/step, {exp_ca_variants.N} x {exp_ca_variants.H}x{exp_ca_variants.W}, "
-            f"{exp_ca_variants.STEPS} steps, 3 repetitions")
+    # S4: each formulation's time beside its instruction bound (the busiest
+    # pipe) at both sizes.  At 256 envs the 16 MiB grid stays in the 50 MB
+    # L2 across the in-place steps, so the HBM bytes bound is no floor there
+    # and no share is given; at 4096 envs (256 MiB) the bound is the larger
+    # of the two, and the share is read there.  Then the formulations' order.
+    loops = s4_loops()
+    sms, clock_hz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_hz()
+    s4_bound = {}
+    h, w = exp_ca_variants.H, exp_ca_variants.W
+    for n, rows in ((exp_ca_variants.N, ca_rows), (S4_BIG_ENVS, ca_big)):
+        for v in VARIANTS:
+            r, loop = rows[v], loops[v]
+            bytes_ms, pipes, moved = s4_bounds(n, h, w, loop, sms, clock_hz)
+            pipe = max(pipes, key=pipes.get)
+            in_l2 = n == exp_ca_variants.N
+            s4_bound[n, v] = (pipes[pipe], "operations") if in_l2 else max(
+                (bytes_ms, "bytes"), (pipes[pipe], "operations"))
+            log(f"[time] [{card}] ca_{v} {n} x {h}x{w}: {r['device_us']} us/step of device "
+                f"time ({r['device_us'] * 1e3 / n} ns/grid), host {r['host_us']} us/step, "
+                f"{exp_ca_variants.STEPS} steps, 3 repetitions; inner loop "
+                f"{loop.instructions} SASS instructions at {loop.start:#x}-{loop.end:#x} for "
+                f"{4 * loop.marked} words ({loop.marked} 16-byte stores), "
+                f"{loop.instructions / (4 * loop.marked)} a word, {dict(loop.opcodes)}; "
+                f"{n * h * w // 4} words on {sms} SMs at {clock_hz / 1e6} MHz by pipe: "
+                + ", ".join(f"{p} {t * 1e3} us" for p, t in pipes.items())
+                + f" ({pipe} bounds); bytes {moved / 1e6} MB, at 3.35 TB/s {bytes_ms * 1e3} us"
+                + ("; the grid stays in L2, so the bytes bound is no floor: bound "
+                   f"{s4_bound[n, v][0] * 1e3} us by {pipe}, no share" if in_l2 else
+                   f"; bound {s4_bound[n, v][0] * 1e3} us by {s4_bound[n, v][1]}, share "
+                   f"{s4_bound[n, v][0] * 1e3 / r['device_us']}"))
+        order = sorted(VARIANTS, key=lambda v: rows[v]["device_us"])
+        log(f"[probe] S4 formulations at {n} x {exp_ca_variants.H}², fastest first: "
+            + " < ".join(f"{v} {rows[v]['device_us']} us" for v in order))
     for label, b in ((f"{ADV_ENVS} x {ADV_SIZE}²", bench), (f"{K3_ENVS} x {K3_SIZE}²",
                                                              bench_tiled)):
         log(f"[time] [{card}] bench_fused_ca {label} (radius {b['radius']}): " + "; ".join(
@@ -485,35 +602,92 @@ def probe_phase(card, gen, adv_recorded):
         f"entry point: max_abs_err {floor_err} (tolerance 0)")
     if floor_err != 0:
         fail("probe_floor disagrees with its plain version")
+    # The library yardstick: where the counts are [p[e, 4], p[e, 5], 0, 0]
+    # cut to counts_w, one F.pad of the table computes them; timed on each
+    # row's own table (the one its entry point drew), and held to the plain
+    # version.
+    for mod in (exp_counts_out, exp_launch_floor, exp_kernel_overhead, exp_floor):
+        for v, table in zip(mod.VARIANTS, floor_kernel.variant_tables(mod.VARIANTS, "cuda")):
+            floor_rows[v.label]["library_us"] = None
+            if v.table_w < 6 or not v.counts_w:
+                continue
+
+            def pad(table=table, c=v.counts_w):
+                return F.pad(table[:, 4:6], (0, c - 2))
+
+            if not torch.equal(pad(), probe_floor_plain(v.n, table, counts_w=v.counts_w)):
+                fail(f"F.pad of the table differs from probe_floor's plain version: {v.label}")
+            floor_rows[v.label]["library_us"] = library_us(pad, PROBE_FLOOR_STEPS)
     for label, r in floor_rows.items():
         log(f"[time] [{card}] probe_floor {label}: {r['device_us']} us/launch device, "
             f"{r['host_us']} us/launch host (N={r['n']}, {r['envs_per_block']} envs/block, "
             f"table {r['table_w']}, counts {r['counts_w']}, staged {r['staged']}, grid "
-            f"{r['grid']})")
+            f"{r['grid']}); library F.pad {r['library_us']} us; bound max(bytes "
+            f"{r['bytes'] / HBM_BYTES_PER_S * 1e6} us, the launch floor)")
+    # S3's bound at 4096 envs a block: one SM by the probe's definition, so the
+    # launch floor (S5's A) plus its bytes at the rate one SM reaches.  That
+    # rate is the faster of two loaders: one block of the bulk-copy engine
+    # (one_sm_copy, which owes nothing to the probe) copying S3_COPY_BYTES
+    # against a copy of one chunk, and the probe's own kernel over
+    # S3_STREAM_ENVS envs against the same launch moving nothing.
+    s3 = exp_kernel_overhead.VARIANTS[-1]
+    s3_bytes = floor_bytes(s3.n, s3.table_w, s3.counts_w)
+    src = torch.randint(-128, 128, (S3_COPY_BYTES,), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    copies = {}
+    for size in (S3_COPY_SMALL, s3_bytes // 2, S3_COPY_BYTES):
+        dst = torch.zeros_like(src[:size])
+        if not torch.equal(one_sm_copy(src[:size], dst), src[:size]):
+            fail(f"one_sm_copy of {size} B differs from its source")
+        copies[size] = time_launches(
+            lambda size=size, dst=dst: [one_sm_copy(src[:size], dst)
+                                        for _ in range(PROBE_FLOOR_STEPS)],
+            PROBE_FLOOR_STEPS, "one_sm_copy_kernel")["device_us"]
+    copy_rate = 2 * (S3_COPY_BYTES - S3_COPY_SMALL) / (
+        (copies[S3_COPY_BYTES] - copies[S3_COPY_SMALL]) * 1e-6)
+    stream = floor_kernel.run_variants(
+        [FloorVariant("one block, nothing moved", S3_STREAM_ENVS, S3_STREAM_ENVS, 0, 0),
+         FloorVariant("one block, 8-wide table, 4 counts", S3_STREAM_ENVS, S3_STREAM_ENVS, 8, 4)],
+        PROBE_FLOOR_STEPS, "cuda", h=1, w=1)
+    stream_bytes = floor_bytes(S3_STREAM_ENVS, 8, 4)
+    probe_rate = stream_bytes / ((stream[1]["device_us"] - stream[0]["device_us"]) * 1e-6)
+    sm_bytes_per_s = max(copy_rate, probe_rate)
+    launch_floor_us = floor_rows[exp_floor.VARIANTS[0].label]["device_us"]
+    s3_bound_us = launch_floor_us + s3_bytes / sm_bytes_per_s * 1e6
+    log(f"[time] [{card}] S3 {s3.label}: {floor_rows[s3.label]['device_us']} us/launch; one "
+        f"block of the bulk-copy engine copies {S3_COPY_BYTES} B in {copies[S3_COPY_BYTES]} "
+        f"us against {copies[S3_COPY_SMALL]} us for {S3_COPY_SMALL} B: {copy_rate / 1e9} GB/s "
+        f"read and written (a copy moving S3's {s3_bytes} B, launch included: "
+        f"{copies[s3_bytes // 2]} us); the probe's one block over {S3_STREAM_ENVS} envs moving "
+        f"{stream_bytes} B takes {stream[1]['device_us']} us against "
+        f"{stream[0]['device_us']} us moving nothing: {probe_rate / 1e9} GB/s; bound = the "
+        f"launch floor (S5 A) {launch_floor_us} us + {s3_bytes} B at the faster "
+        f"{sm_bytes_per_s / 1e9} GB/s = {s3_bound_us} us, share "
+        f"{s3_bound_us / floor_rows[s3.label]['device_us']}; library F.pad "
+        f"{floor_rows[s3.label]['library_us']} us")
 
     # The kernels line: bounds from this run's inputs, plain versions timed.
+    # S4 at 4096 envs, where its bytes bound is a floor (the grid past L2).
     entries = []
-    grid0, weights = exp_ca_variants.make_inputs(exp_ca_variants.N, exp_ca_variants.H,
+    grid0, weights = exp_ca_variants.make_inputs(S4_BIG_ENVS, exp_ca_variants.H,
                                                  exp_ca_variants.W, SEED, "cuda")
-    n_cells = grid0.numel()
-    ca_bytes = 2 * n_cells + exp_ca_variants.N * (32 + 8)
-    ca_bound = max((ca_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                   (n_cells * ki.OPS_PER_CELL / INT32_OPS_PER_S * 1e3, "operations"))
     for v in VARIANTS:
         scratch = grid0.clone()
         entries.append(dict(
             name=f"ca_variant_{v}", route="cuda", source="gymca_torch/csrc/ca_variants.cu",
             replaces=f"scripts/exp_ca_variants.py:{CA_VARIANT_LINES[v]}",
-            launches=ca_variant_step.launches[v], max_abs_err=ca_err[v],
-            ms=ca_rows[v]["device_us"] / 1e3,
+            launches=launches[f"ca_variant_{v}"], max_abs_err=ca_err[v],
+            ms=ca_big[v]["device_us"] / 1e3,
             plain_ms=cuda_ms(lambda: PLAIN[v](scratch, weights), 3),
-            bound_ms=ca_bound[0], bound_by=ca_bound[1], library_ms=None))
+            bound_ms=s4_bound[S4_BIG_ENVS, v][0],
+            bound_by=s4_bound[S4_BIG_ENVS, v][1], library_ms=None))
+    del grid0, scratch
     xd = dma_x[ADV_SIZE]
     dma_args = [xd[k] for k in ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows",
                                 "seeds")]
     entries.append(dict(
         name="dma_floor", route="cuda", source="gymca_torch/csrc/dma_floor.cu",
-        replaces="scripts/bench_fused_ca.py:118", launches=dma_floor.launches,
+        replaces="scripts/bench_fused_ca.py:118", launches=launches["dma_floor"],
         max_abs_err=dma_err, ms=bench["dma-floor_us"] / 1e3,
         plain_ms=cuda_ms(lambda: dma_floor_plain(*dma_args), 3),
         bound_ms=moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / HBM_BYTES_PER_S * 1e3,
@@ -523,13 +697,12 @@ def probe_phase(card, gen, adv_recorded):
                           dtype=torch.int32)
     entries.append(dict(
         name="probe_floor", route="cuda", source="gymca_torch/csrc/probe_floor.cu",
-        replaces="scripts/exp_floor.py:42", launches=probe_floor.launches,
+        replaces="scripts/exp_floor.py:42", launches=launches["probe_floor"],
         max_abs_err=floor_err, ms=floor_rows[fv.label]["device_us"] / 1e3,
         plain_ms=cuda_ms(lambda: probe_floor_plain(fv.n, table, counts_w=fv.counts_w), 3),
         bound_ms=floor_bytes(fv.n, fv.table_w, fv.counts_w) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None))
-    log(f"[time] [{card}] probe kernels' bounds: ca variants {ca_bytes / 1e6} MB/step at "
-        f"3.35 TB/s = {ca_bound[0] * 1e3} us ({ca_bound[1]}); dma_floor "
+        bound_by="bytes", library_ms=floor_rows[fv.label]["library_us"] / 1e3))
+    log(f"[time] [{card}] probe kernels' bounds: ca variants above; dma_floor "
         f"{moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / 1e6} MB/launch = "
         f"{entries[-2]['bound_ms'] * 1e3} us at {ADV_ENVS} x {ADV_SIZE}², "
         f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / 1e6} MB = "

@@ -4,7 +4,8 @@ plain versions.
 Counterpart of ``scripts/exp_ca_variants.py``'s bodies ``kernel_banded``,
 ``kernel_bool``, ``kernel_fma`` and ``kernel_swar``.  The kernels are
 ``gymca_torch/csrc/ca_variants.cu``, one ``__global__`` function per
-formulation on one shared layout; its source note says what each computes.
+formulation on K1's layout (a thread-block cluster of ``CLUSTER_BLOCKS``
+row bands per env); its source note says what each computes.
 Every formulation takes the inputs K1 takes for a CA env, without the shot
 and the edit log: an (N, H, W) int8 grid of ``EMPTY, TREE, FIRE = 0, 3, 25``,
 updated in place, and (N, 8) int32 weights, each 0 or ``PROPAGATION``, in
@@ -28,19 +29,36 @@ from gymca_torch import _build
 from gymca_torch.ops.stencil import NEIGHBOR_OFFSETS, moore_shifts, shift
 from gymca_torch.ops.windy import IDENTITY, windy_breaks, windy_step_from_success
 
-__all__ = ["VARIANTS", "KERNEL_NAMES", "PLAIN", "EMPTY", "TREE", "FIRE", "ca_variant_step",
-           "reference_step", "shared_memory_bytes"]
+__all__ = ["VARIANTS", "KERNEL_NAMES", "PLAIN", "EMPTY", "TREE", "FIRE", "CLUSTER_BLOCKS",
+           "ca_variant_step", "reference_step", "bands", "shared_memory_bytes"]
 
 EMPTY, TREE, FIRE = 0, 3, 25
 VARIANTS = ("banded", "bool", "fma", "swar")
 KERNEL_NAMES = {v: f"ca_{v}_kernel" for v in VARIANTS}  # as the profiler names them
 _WIDX = {offset: i for i, offset in enumerate(NEIGHBOR_OFFSETS)}
-_MAX_SHARED_BYTES = 232448 - 128  # a block's dynamic shared memory, less the counts'
+_MAX_SHARED_BYTES = 232448 - 256  # a block's dynamic shared memory, less its static part
+CLUSTER_BLOCKS = 4  # kCluster in the source: row bands (blocks) per env
+
+
+def bands(h: int):
+    """Each block's rows, as the kernel cuts an env of ``h`` rows: ``(r0, r1,
+    rs, re)`` for block 0 .. ``CLUSTER_BLOCKS - 1``, owning rows ``[r0, r1)``
+    (empty where ``r0 == r1``) and staging rows ``[rs, re)``, its band and a
+    halo row each side inside the grid."""
+    band = -(-h // CLUSTER_BLOCKS)
+    out = []
+    for b in range(CLUSTER_BLOCKS):
+        r0 = min(b * band, h)
+        r1 = min(r0 + band, h)
+        out.append((r0, r1, max(r0 - 1, 0), min(r1 + 1, h)))
+    return out
 
 
 def shared_memory_bytes(h: int, w: int) -> int:
-    """Shared memory of one kernel block: the grid, rows padded to words."""
-    return h * 4 * ((w + 3) // 4)
+    """Dynamic shared memory of one kernel block: two stages of its band
+    (``ceil(h / CLUSTER_BLOCKS)`` rows) and a halo row each side, rows padded
+    to words."""
+    return 2 * (-(-h // CLUSTER_BLOCKS) + 2) * 4 * ((w + 3) // 4)
 
 
 def _counts(new):
@@ -174,8 +192,8 @@ def ca_variant_step(variant: str, grid: torch.Tensor, weights: torch.Tensor):
 
     CPU tensors take ``PLAIN[variant]``; CUDA tensors launch the kernel
     (``ca_variant_step.launches[variant]`` counts its launches).  The swar
-    formulation needs W % 4 == 0; on the card the grid must fit a block's
-    shared memory (about 227 KiB)."""
+    formulation needs W % 4 == 0; on the card two stages of a block's band
+    must fit its shared memory (about 227 KiB: 512 x 512 grids fit)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     n, h, w = grid.shape
@@ -190,7 +208,8 @@ def ca_variant_step(variant: str, grid: torch.Tensor, weights: torch.Tensor):
         raise ValueError(f"ca_variant_step runs on CPU or CUDA tensors, got {dev}")
     if shared_memory_bytes(h, w) > _MAX_SHARED_BYTES:
         raise ValueError(f"a {h}x{w} grid needs {shared_memory_bytes(h, w)} bytes of "
-                         f"shared memory per block, more than {_MAX_SHARED_BYTES}")
+                         f"shared memory per block (two stages of its band), more than "
+                         f"{_MAX_SHARED_BYTES}")
     counts = torch.empty((n, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _launcher()(VARIANTS.index(variant), grid.data_ptr(), weights.data_ptr(),

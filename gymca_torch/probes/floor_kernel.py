@@ -38,7 +38,8 @@ from gymca_torch.config import resolve_device
 from gymca_torch.probes import timing
 
 __all__ = ["probe_floor", "probe_floor_plain", "moved_bytes", "TABLE_WIDTHS",
-           "COUNT_WIDTHS", "FloorVariant", "run_variants", "main"]
+           "COUNT_WIDTHS", "FloorVariant", "variant_tables", "run_variants", "main",
+           "one_sm_copy"]
 
 TABLE_WIDTHS = (0, 1, 8, 16)
 COUNT_WIDTHS = (0, 1, 4)
@@ -134,6 +135,38 @@ def probe_floor(grid: Optional[torch.Tensor], table: Optional[torch.Tensor], *,
 probe_floor.launches = 0
 
 
+@functools.cache
+def _copy_launcher():
+    fn = _build.load("probe_floor").one_sm_copy_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def one_sm_copy(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)`` by one block of the card, a thread driving the
+    bulk-copy engine: the yardstick of the rate one SM reaches, for S3's
+    bound where one block walks 4096 envs.  ``src`` and ``dst`` are 1-D int8
+    of one length, a multiple of 16, and 16-byte aligned.  CPU tensors take
+    ``dst.copy_(src)``; CUDA tensors launch the kernel or raise."""
+    dev = src.device
+    _build.check_operand("src", src, src.shape, torch.int8, dev)
+    _build.check_operand("dst", dst, src.shape, torch.int8, dev)
+    if src.dim() != 1 or src.numel() % 16 or src.data_ptr() % 16 or dst.data_ptr() % 16:
+        raise ValueError("one_sm_copy takes 1-D int8 tensors of a multiple of 16 bytes, "
+                         "16-byte aligned")
+    if dev.type == "cpu":
+        return dst.copy_(src)
+    if dev.type != "cuda":
+        raise ValueError(f"one_sm_copy runs on CPU or CUDA tensors, got {dev}")
+    with torch.cuda.device(dev):
+        err = _copy_launcher()(src.data_ptr(), dst.data_ptr(), src.numel(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"one_sm_copy kernel launch failed: CUDA error {err}")
+    return dst
+
+
 # --- the entry points' sweep ------------------------------------------------------------
 
 
@@ -148,10 +181,19 @@ class FloorVariant(NamedTuple):
     grid: bool = True  # False: the form without a grid
 
 
+def variant_tables(variants: Sequence[FloorVariant], device) -> List[Optional[torch.Tensor]]:
+    """Each variant's parameter table as :func:`run_variants` draws it: (n,
+    table_w) int32 from one generator seeded 0, in order, or None."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return [torch.randint(-2**31, 2**31 - 1, (v.n, v.table_w), generator=gen, device=device,
+                          dtype=torch.int32) if v.table_w else None for v in variants]
+
+
 def run_variants(variants: Sequence[FloorVariant], steps: int, device=None, reps: int = 3,
                  h: int = 256, w: int = 256) -> List[dict]:
     """For each variant: check the launch's counts against the plain version
-    on a table drawn from a seeded generator (the row's ``max_abs_err``,
+    on its table from :func:`variant_tables` (the row's ``max_abs_err``,
     which is 0: a difference raises), then (on the card) time ``steps``
     launches in ``reps`` repetitions (``timing.time_launches``).  The grids
     are (N, h, w) int8 zeros, never touched.  Returns one row per variant
@@ -159,13 +201,9 @@ def run_variants(variants: Sequence[FloorVariant], steps: int, device=None, reps
     dev = resolve_device(device)
     n_max = max(v.n for v in variants)
     grid = torch.zeros((n_max, h, w), dtype=torch.int8, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     rows = []
-    for v in variants:
+    for v, table in zip(variants, variant_tables(variants, dev)):
         g = grid[:v.n] if v.grid else None
-        table = (torch.randint(-2**31, 2**31 - 1, (v.n, v.table_w), generator=gen,
-                               device=dev, dtype=torch.int32) if v.table_w else None)
 
         def call(v=v, g=g, table=table):
             return probe_floor(g, table, counts_w=v.counts_w,

@@ -276,23 +276,62 @@ def test_advanced_env_defaults_to_the_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["banded", "bool", "fma", "swar"])
-@pytest.mark.parametrize("n,h,w", [(4, 64, 128), (3, 40, 52), (2, 256, 256), (2, 24, 50)])
-def test_ca_variant_kernel_matches_plain_on_the_card(cuda, variant, n, h, w):
+@pytest.mark.parametrize("n,h,w,offset", [
+    (4, 64, 128, 0), (3, 40, 52, 0), (2, 256, 256, 0), (2, 24, 50, 0),
+    (256, 256, 256, 0), (64, 250, 256, 0), (2, 3, 64, 0), (1, 512, 512, 0), (1, 1, 64, 0),
+    (3, 64, 128, 4),  # a view 4 bytes into a larger buffer: word loads, no bulk copy
+    # word loads over more envs than there are resident clusters: rounds of
+    # both stages and their count slots
+    (600, 40, 52, 4), (600, 64, 128, 4),
+])
+def test_ca_variant_kernel_matches_plain_on_the_card(cuda, variant, n, h, w, offset):
     from gymca_torch.probes import ca_variants_kernel as cv
     from gymca_torch.probes.exp_ca_variants import make_inputs
 
     grid, weights = make_inputs(n, h, w, n + h, cuda)
+    if offset:
+        buf = torch.zeros(grid.numel() + 16, dtype=torch.int8, device=cuda)
+        grid = buf[offset:offset + grid.numel()].view(n, h, w)
+        grid.copy_(make_inputs(n, h, w, n + h, cuda)[0])
+        assert grid.data_ptr() % 16 == offset
     if variant == "swar" and w % 4:
         with pytest.raises(ValueError):
             cv.ca_variant_step(variant, grid, weights)
         return
-    a, b = grid.clone(), grid.clone()
+    a, b = (grid if offset else grid.clone()), grid.clone()
     before = cv.ca_variant_step.launches[variant]
     for _ in range(5):
         a, ca = cv.ca_variant_step(variant, a, weights)
         b, cb = cv.PLAIN[variant](b, weights)
         assert torch.equal(a, b) and torch.equal(ca, cb)
     assert cv.ca_variant_step.launches[variant] == before + 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["banded", "bool", "fma", "swar"])
+@pytest.mark.parametrize("n,steps", [(256, 40), (4096, 3)])
+def test_ca_variant_kernel_matches_plain_at_the_probes_sizes(cuda, variant, n, steps):
+    """The script's 256 envs of 256² over its 40 steps, and K1's all-CA
+    4096 envs (the bulk copies of many rounds of clusters), every step."""
+    from gymca_torch.probes import ca_variants_kernel as cv
+    from gymca_torch.probes.exp_ca_variants import make_inputs
+
+    grid, weights = make_inputs(n, 256, 256, n, cuda)
+    a, b = grid.clone(), grid
+    for _ in range(steps):
+        a, ca = cv.ca_variant_step(variant, a, weights)
+        b, cb = cv.PLAIN[variant](b, weights)
+        assert torch.equal(a, b) and torch.equal(ca, cb)
+
+
+@pytest.mark.gpu
+def test_ca_variant_kernel_refuses_grids_past_its_shared_memory(cuda):
+    from gymca_torch.probes import ca_variants_kernel as cv
+    from gymca_torch.probes.exp_ca_variants import make_inputs
+
+    grid, weights = make_inputs(1, 1024, 1024, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cv.ca_variant_step("bool", grid, weights)
 
 
 @pytest.mark.gpu
@@ -313,7 +352,9 @@ def test_dma_floor_kernel_matches_plain_on_the_card(cuda, n, h, w):
 @pytest.mark.parametrize("table_w", [0, 1, 8, 16])
 @pytest.mark.parametrize("counts_w,staged", [(0, False), (1, False), (4, False), (1, True),
                                              (4, True)])
-@pytest.mark.parametrize("n,envs_per_block", [(4096, 128), (4096, 4096), (100, 12)])
+@pytest.mark.parametrize("n,envs_per_block", [(4096, 128), (4096, 4096), (100, 12), (4096, 1),
+                                              (4096, 31), (4096, 1000), (1000, 4096),
+                                              (4096, 512)])
 def test_probe_floor_kernel_matches_plain_on_the_card(cuda, table_w, counts_w, staged, n,
                                                       envs_per_block):
     from gymca_torch.probes.floor_kernel import probe_floor, probe_floor_plain
@@ -330,6 +371,21 @@ def test_probe_floor_kernel_matches_plain_on_the_card(cuda, table_w, counts_w, s
     want = probe_floor_plain(n, table, counts_w=counts_w, device=cuda)
     assert (got is None and want is None) or torch.equal(got, want)
     assert not grid.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [16, 16 * 1024, 16 * 1024 + 48, 8 * 16 * 1024,
+                                  1536 * 1024 + 16])
+def test_one_sm_copy_kernel_copies_on_the_card(cuda, size):
+    """One chunk, one partial chunk past it, every stage once, and many
+    rounds of the stages with a partial last chunk."""
+    from gymca_torch.probes.floor_kernel import one_sm_copy
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(size)
+    src = torch.randint(-128, 128, (size,), generator=gen, device=cuda, dtype=torch.int8)
+    dst = torch.zeros_like(src)
+    assert torch.equal(one_sm_copy(src, dst), src)
 
 
 @pytest.mark.gpu

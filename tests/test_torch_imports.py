@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax", "orbax")
 GYM_ADAPTER = ROOT / "gymca_torch" / "gym_env.py"
 PROBES = ("timing", "ca_variants_kernel", "dma_floor_kernel", "floor_kernel",
           "exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
-          "exp_kernel_overhead", "exp_floor")
+          "exp_kernel_overhead", "exp_floor", "sass")
 AGENTS = ("args", "networks", "optim", "ppo", "checkpoint")
 
 

@@ -317,6 +317,7 @@ def _fake_sessions(monkeypatch, sessions):
     left = [s if isinstance(s, dict) else ({"k": s} if s else {}) for s in sessions]
     monkeypatch.setattr(timing.torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(timing, "kernel_durations_us", lambda run, kernel: left.pop(0))
+    monkeypatch.setattr(timing.time, "sleep", lambda seconds: None)  # the pause between tries
     return left
 
 
@@ -355,11 +356,13 @@ def test_time_launches_adds_the_kernels_of_one_call(monkeypatch):
 
 
 def test_time_launches_raises_when_no_session_holds(monkeypatch):
-    _fake_sessions(monkeypatch, [[9.0], [1.0] * 4, [], [1.0], [1.0] * 9])
-    with pytest.raises(RuntimeError, match="in each of 3 sessions"):
+    broken = [[], [1.0], [1.0] * 9]  # none, 1 of 4, 9 of 4
+    tries = timing.SESSION_TRIES
+    _fake_sessions(monkeypatch, [[9.0], [1.0] * 4] + (broken * tries)[:tries])
+    with pytest.raises(RuntimeError, match=f"in each of {tries} sessions"):
         timing.time_launches(lambda: None, 4, "k")
-    _fake_sessions(monkeypatch, [[], [], []])
-    with pytest.raises(RuntimeError, match="warm-up"):
+    _fake_sessions(monkeypatch, [[]] * tries)
+    with pytest.raises(RuntimeError, match=f"in {tries} warm-up"):
         timing.time_launches(lambda: None, 4, "k")
 
 
