@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four paths, carried by kernels written by hand in CUDA:
+Six paths, five of them carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -15,7 +15,10 @@ Four paths, carried by kernels written by hand in CUDA:
   the Alexandridis kernel's ablation instances;
 * slice 5: the PPO trainer (``gymca_torch/agents/``) on the Advanced env at
   ``scripts/run``'s defaults, 8 envs at 256², carried by the Alexandridis
-  kernel (one launch per env step) beside cuDNN's convs.
+  kernel (one launch per env step) beside cuDNN's convs;
+* slice 7: the Helicopter (``HelicopterCore``, plain torch ops, as the JAX
+  package's Drossel–Schwabl CA is plain XLA) and ``gymca_torch.run``'s
+  evaluation loop on the Advanced env, carried by the Alexandridis kernel.
 
 Phases, each fatal on failure:
 
@@ -115,8 +118,29 @@ Phases, each fatal on failure:
    and the difference TF32 makes.  (d) ``train_iteration`` twice from one
    carry at (b)'s size, float32 defaults and (b)'s flags: whether metrics
    and params agree bit for bit (reported, not a failure);
-10. one JSON line describing every kernel, one per path, and ``{"train": ...}``;
-11. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+10. slice 7, ``[helicopter]``: ``HelicopterCore(42, 42)``, the registered
+    size, at 4096 envs for 200 ``autoreset_step``s with random actions under
+    ``set_sync_debug_mode("error")`` (best of 3 for env-steps/s), then 256
+    envs at 256² for 50 steps: cells in {0, 1, 2}, finite rewards in [-1,
+    1], never done; the card against the CPU, every leaf bit for bit, at 64
+    envs for 70 steps (three CA applications and more); a profiler trace
+    (device kernels per step, idle share).  Its CA is plain torch ops, as
+    the JAX package's is plain XLA: no hand-written kernel on this path;
+11. slice 7, ``[eval]``: ``gymca_torch.run``'s evaluation loop
+    (``eval_loop``) at ``scripts/run``'s defaults (8 envs at 256², ``single``
+    mode, the fused kernel), 200 steps each with the random, scripted and
+    params actors (the params actor restores ``[train]``'s trained agent
+    state, saved with the port's ``CheckpointManager``, through
+    ``load_actor``), each under ``set_sync_debug_mode("error")`` with K2's
+    counter zeroed before and read after (one launch a step); the kernel's
+    inputs recorded at each actor's first and last launch and held against
+    its plain version (tolerance 0); steps/s, and a profiler trace of the
+    random actor's loop.  Nothing is rendered (the card's machine has no
+    matplotlib);
+12. one JSON line describing every kernel, one per path (the Alexandridis
+    kernel's with its launches on each path), then ``{"train": ...}``,
+    ``{"helicopter": ...}`` and ``{"eval": ...}``;
+13. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -128,6 +152,7 @@ import ctypes
 import json
 import math
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -173,6 +198,15 @@ PIPELINE_ARGV = TRAIN_ARGV + ["--num-ppo-steps", "16", "--bf16", "--centroid-fea
                               "--shape-douse-coef", "20", "--bc-iters", "1",
                               "--critic-warmup-iters", "1", "--kickstart-coef", "1.0"]
 PIPELINE_ITERS = 3
+# Slice 7.  The Helicopter at its registered size (gymca_tpu/registration.py:
+# 15-24, 42²), 4096 envs, and 256 envs at 256²; card against CPU over more
+# than three freeze cycles (the CA every 22 steps at 42²).  The evaluation
+# at scripts/run's defaults (scripts/run:312-410: 8 envs at 256², single
+# mode, the fused kernel), cut from 10,000 steps to 200 per actor.
+HELI_SIZE, HELI_ENVS, HELI_STEPS = (42, 42), 4096, 200
+HELI_BIG_SIZE, HELI_BIG_ENVS, HELI_BIG_STEPS = (256, 256), 256, 50
+HELI_PARITY_ENVS, HELI_PARITY_STEPS = 64, 70
+EVAL_ARGV = ["-n", "8", "-z", "256", "--no-train", "--steps", "200"]
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
@@ -1086,7 +1120,7 @@ def train_phase(card):
     log(f"[train] (d) train_iteration twice from one carry at {pargs.env.num_envs} envs x "
         f"{p_steps} steps, (metrics, params) bit for bit: {det}")
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f}s")
-    return {
+    return state, {
         "card": card, "envs": args.env.num_envs, "size": args.env.size, "steps": steps,
         "iterations": TRAIN_ITERS, "samples_per_s": history[-1]["SPS"],
         "sps_per_iteration": [h["SPS"] for h in history],
@@ -1100,6 +1134,199 @@ def train_phase(card):
         "conv_tf32": torch.backends.cudnn.allow_tf32,
         "deterministic": {k: {"metrics": v[0], "params": v[1]} for k, v in det.items()},
     }
+
+
+# --- slice 7: the Helicopter and the evaluation mode ------------------------------------
+
+
+def state_mismatches(a, b, where):
+    """Names of the leaves of two Helicopter states (and outputs) that differ."""
+    pairs = {"grid": (a[0].grid, b[0].grid), "key": (a[0].key, b[0].key),
+             "done": (a[0].done, b[0].done), "steps": (a[0].steps_elapsed, b[0].steps_elapsed),
+             "reward_accumulated": (a[0].reward_accumulated, b[0].reward_accumulated),
+             "reward": (a[1].reward, b[1].reward), "hit": (a[1].info["hit"], b[1].info["hit"]),
+             **{k: (a[0].context[k], b[0].context[k]) for k in a[0].context}}
+    return [f"{where} {k}" for k, (x, y) in pairs.items() if not torch.equal(x.cpu(), y.cpu())]
+
+
+def helicopter_phase(card, gen):
+    """``[helicopter]`` (module docstring, phase 10)."""
+    from gymca_torch import rng
+    from gymca_torch.core.env import autoreset_step
+    from gymca_torch.envs.helicopter import HelicopterCore
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+
+    t_phase = time.perf_counter()
+    h, w = HELI_SIZE
+
+    def run(core, n, steps):
+        state = core.initial_state(rng.split(rng.key(SEED), n))
+        actions = torch.randint(0, 9, (steps, n), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            for a in actions:
+                state, out = autoreset_step(core, state, a)
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return state, out, dt
+
+    def check_out(state, out, core, label):
+        values = torch.unique(state.grid).tolist()
+        ok = (set(values) <= {core._empty, core._tree, core._fire}
+              and bool(torch.isfinite(out.reward).all())
+              and bool(((out.reward >= -1) & (out.reward <= 1)).all())
+              and not bool(out.terminated.any()))
+        if not ok:
+            fail(f"the Helicopter at {label} gave cells {values} or rewards out of [-1, 1]")
+
+    core = HelicopterCore(h, w)
+    for c in (alexandridis_fused_step, windy_fused_step):
+        c.launches = 0
+    rates = []
+    for _ in range(TIMING_REPS):
+        state, out, dt = run(core, HELI_ENVS, HELI_STEPS)
+        rates.append(HELI_ENVS * HELI_STEPS / dt)
+    check_out(state, out, core, f"{HELI_ENVS} x {h}x{w}")
+    launches = alexandridis_fused_step.launches + windy_fused_step.launches
+    freeze = int(state.context["freeze"][0])
+    log(f"[helicopter] [{card}] HelicopterCore({h}, {w}) (max_freeze {core._max_freeze}), "
+        f"{HELI_ENVS} envs, {HELI_STEPS} autoreset_steps under sync_debug_mode=error, best of "
+        f"{TIMING_REPS}: {max(rates)} env-steps/s ({HELI_ENVS * 1e3 / max(rates)} ms/step); "
+        f"reps {rates}; freeze at the end {freeze}; mean reward {out.reward.mean().item()}; "
+        f"hand-written kernel launches {launches} (the CA is plain torch ops, as the JAX "
+        f"package's is plain XLA)")
+
+    big = HelicopterCore(*HELI_BIG_SIZE)
+    state, out, dt = run(big, HELI_BIG_ENVS, HELI_BIG_STEPS)
+    check_out(state, out, big, f"{HELI_BIG_ENVS} x {HELI_BIG_SIZE}")
+    big_rate = HELI_BIG_ENVS * HELI_BIG_STEPS / dt
+    log(f"[helicopter] [{card}] HelicopterCore{HELI_BIG_SIZE}, {HELI_BIG_ENVS} envs, "
+        f"{HELI_BIG_STEPS} autoreset_steps under sync_debug_mode=error: {big_rate} "
+        f"env-steps/s ({dt * 1e3 / HELI_BIG_STEPS} ms/step)")
+
+    # the card against the CPU, bit for bit, over more than three freeze cycles
+    cpu = HelicopterCore(h, w, device="cpu")
+    keys = rng.split(rng.key(SEED + 1), HELI_PARITY_ENVS)
+    a, b = (core.initial_state(keys), None), (cpu.initial_state(keys.cpu()), None)
+    actions = torch.randint(0, 9, (HELI_PARITY_STEPS, HELI_PARITY_ENVS), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    mismatches, ca_steps = [], 0
+    for t, act in enumerate(actions):
+        ca_steps += int(a[0].context["freeze"][0] == 0)
+        a = autoreset_step(core, a[0], act)
+        b = autoreset_step(cpu, b[0], act.cpu())
+        mismatches += state_mismatches(a, b, f"step {t}")
+    log(f"[helicopter] card against CPU, {HELI_PARITY_ENVS} envs at {h}x{w}, "
+        f"{HELI_PARITY_STEPS} autoreset_steps ({ca_steps} CA applications per env): "
+        f"{len(mismatches)} leaf mismatches {mismatches[:5]}")
+    if mismatches or ca_steps < 3:
+        fail("the Helicopter on the card differs from the CPU")
+
+    state0 = core.initial_state(rng.split(rng.key(SEED), HELI_ENVS))
+    acts = torch.randint(0, 9, (PROFILE_STEPS, HELI_ENVS), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+    def steps():
+        st = state0
+        for act in acts:
+            st, _ = autoreset_step(core, st, act)
+
+    steps()  # warm
+    prof = profile_steps(steps, PROFILE_STEPS,
+                         f"Helicopter autoreset_step {HELI_ENVS} x {h}x{w}", card)
+    if prof is None:
+        fail("the profiler saw no device time in the Helicopter's step")
+    log(f"[helicopter] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"card": card, "envs": HELI_ENVS, "size": [h, w], "steps": HELI_STEPS,
+            "env_steps_per_sec": max(rates), "env_steps_per_sec_reps": rates,
+            "big": {"envs": HELI_BIG_ENVS, "size": list(HELI_BIG_SIZE),
+                    "steps": HELI_BIG_STEPS, "env_steps_per_sec": big_rate},
+            "card_vs_cpu_mismatches": len(mismatches), **prof}
+
+
+def eval_phase(card, trained_state):
+    """``[eval]`` (module docstring, phase 11)."""
+    from gymca_torch.agents.checkpoint import CheckpointManager
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.run import (
+        args_to_structured_args,
+        build_env,
+        eval_loop,
+        make_actor,
+        parse_args,
+    )
+
+    t_phase = time.perf_counter()
+    args = args_to_structured_args(parse_args(EVAL_ARGV))
+    env = build_env(args)
+    if not env.use_fused_ca:
+        fail("the evaluation's env does not take the fused kernel on the card")
+    env.reset()  # warm: copies its tables to the card once, before the sync check
+    actors = {name: make_actor(args, env, name) for name in ("random", "scripted")}
+    with tempfile.TemporaryDirectory() as ckpt:
+        CheckpointManager(ckpt).save_state(1, trained_state,
+                                           torch.zeros(2, dtype=torch.int64, device="cuda"))
+        args.exp.params_path = ckpt
+        actors["params"] = make_actor(args, env, "params")  # load_actor restores it here
+    args.exp.params_path = None
+    steps = args.viz.steps
+    keep = {0, steps - 1}
+    out, recorded, total = {}, [], 0
+    for actor, get_action in actors.items():
+        torch.cuda.synchronize()
+        alexandridis_fused_step.launches = 0
+        with ki.alexandridis_recorder(keep) as rec:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                result = eval_loop(env, get_action, steps)
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        launches = alexandridis_fused_step.launches
+        total += launches
+        recorded += rec
+        r = result.rewards
+        ok = (tuple(r.shape) == (steps, args.env.num_envs) and bool(torch.isfinite(r).all())
+              and bool(((r <= 0) & (r >= -1)).all()))
+        log(f"[eval] [{card}] actor {actor}: {steps} steps of {args.env.num_envs} envs at "
+            f"{args.env.size}² under sync_debug_mode=error in {dt:.3f}s, {steps / dt} "
+            f"steps/s ({args.env.num_envs * steps / dt} env-steps/s), {launches} "
+            f"alexandridis launches; mean reward/env {result.total_reward.mean().item()}")
+        if launches != steps:
+            fail(f"expected one alexandridis launch a step in the {actor} evaluation, got "
+                 f"{launches} in {steps} steps")
+        if not ok:
+            fail(f"the {actor} evaluation's rewards are not finite in [-1, 0]")
+        out[actor] = {"steps_per_s": steps / dt, "alexandridis_launches": launches,
+                      "mean_reward": result.total_reward.mean().item()}
+    err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in recorded)
+    log(f"[kernel] alexandridis on the evaluation's inputs ({len(recorded)} launches recorded, "
+        f"the first and last of each actor): max_abs_err {err} (tolerance 0, grid and age)")
+    if len(recorded) != 3 * len(keep) or err != 0:
+        fail("alexandridis disagrees with its plain version on the evaluation's inputs")
+
+    loop_acts = make_actor(args, env, "random")
+    eval_loop(env, loop_acts, 2)  # warm
+    prof = profile_steps(lambda: eval_loop(env, loop_acts, PROFILE_STEPS), PROFILE_STEPS,
+                         f"evaluation (random actor) {args.env.num_envs} x {args.env.size}²",
+                         card)
+    if prof is None:
+        fail("the profiler saw no device time in the evaluation loop")
+    log(f"[eval] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"card": card, "envs": args.env.num_envs, "size": args.env.size, "steps": steps,
+            "actors": out, "alexandridis_launches": total,
+            "alexandridis_recorded_launches": len(recorded), "alexandridis_max_abs_err": err,
+            **prof}
 
 
 # --- main ----------------------------------------------------------------------------
@@ -1462,10 +1689,15 @@ def main() -> int:
     probe_kernels = probe_phase(card, gen, adv_recorded)
 
     # 9. slice 5: the trainer
-    train = train_phase(card)
+    trained_state, train = train_phase(card)
     adv_max_err = max(adv_max_err, train["alexandridis_max_abs_err"])
 
-    # 10-11. result lines
+    # 10-11. slice 7: the Helicopter and the evaluation
+    heli = helicopter_phase(card, gen)
+    evaluation = eval_phase(card, trained_state)
+    adv_max_err = max(adv_max_err, evaluation["alexandridis_max_abs_err"])
+
+    # 12-13. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -1484,6 +1716,9 @@ def main() -> int:
         "source": "gymca_torch/csrc/alexandridis.cu",
         "replaces": "gymca_tpu/ops/pallas_alexandridis.py:567",
         "launches": adv_launches,
+        "launches_by_path": {"advanced": adv_launches,
+                             "train": train["alexandridis_launches"],
+                             "eval": evaluation["alexandridis_launches"]},
         "max_abs_err": adv_max_err,
         "ms": adv_kernel_ms,
         "plain_ms": adv_plain_ms,
@@ -1500,6 +1735,8 @@ def main() -> int:
         log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best[0],
                                           **{k: adv_prof[k] for k in old_keys}}}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"helicopter": heli}))
+    log(json.dumps({"eval": evaluation}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -17,7 +17,10 @@ Counterpart of ``gymca_tpu/envs/advanced.py``:
   keyed as the JAX package's pytree;
 * API: ``reset()``, ``stateless_step(action, obs, info)``,
   ``conditional_reset(step_tuple, action)``;
-* reward ``-(f / (t + f + 1e-8))`` per env; done = no fire.
+* reward ``-(f / (t + f + 1e-8))`` per env; done = no fire;
+* ``render(obs, info, env_idx)`` and the terrain heatmaps
+  (``altitude_render``, ``density_render``, ``vegitation_render``), host-side
+  matplotlib (``gymca_torch.utils.render``).
 
 The CA runs one of two ways (``use_fused_ca``, the JAX package's
 ``use_pallas_ca``):
@@ -647,3 +650,28 @@ class AdvancedForestFireBulldozerEnv:
     def count_cells(self, grid):
         return {v: (grid == v).sum(dim=(-2, -1))
                 for v in (self._empty, self._tree, self._fire)}
+
+    # ---------------------------------------------------------------- rendering
+
+    def render(self, obs, info=None, env_idx: int = 0):
+        """Render one env of the batch.  The env is stateless, so the caller
+        passes the (rgb, context) obs returned by ``reset()`` /
+        ``stateless_step()``; returns a matplotlib Figure."""
+        from gymca_torch.utils.render import render_advanced
+
+        return render_advanced(self, obs, info, env_idx)
+
+    def _attribute_render(self, key: str, name: str):
+        from gymca_torch.utils.render import plot_grid_attribute
+
+        grids = self._terrain_ctx[key].cpu().numpy()
+        return [plot_grid_attribute(grids[i], name) for i in range(self.num_envs)]
+
+    def altitude_render(self):
+        return self._attribute_render("altitude", "Altitude")
+
+    def density_render(self):
+        return self._attribute_render("density", "Density")
+
+    def vegitation_render(self):  # (sic) the reference's spelling
+        return self._attribute_render("vegetation", "Vegitation")

@@ -1,15 +1,18 @@
-"""The gymnasium adapter: the only module of gymca_torch that imports gymnasium.
+"""The gymnasium adapter: the classic single-env API over the batched cores.
 
-Counterpart of ``GymCAEnv`` (``gymca_tpu/core/env.py``),
-``ForestFireBulldozerEnv`` (``gymca_tpu/envs/bulldozer.py``) and the spec ->
-space conversion (``Spec.to_gymnasium``).  ``gymca_torch.core.env`` and
-``gymca_torch.envs.bulldozer`` load it on demand, so the rest of the port
-runs where gymnasium is not installed.
+Counterpart of ``GridSpace`` (``gymca_tpu/core/gym_compat.py``), ``GymCAEnv``
+(``gymca_tpu/core/env.py``), ``ForestFireBulldozerEnv``
+(``gymca_tpu/envs/bulldozer.py``), ``ForestFireHelicopterEnv``
+(``gymca_tpu/envs/helicopter.py``) and the spec -> space conversion
+(``Spec.to_gymnasium``).  With ``gymca_torch.registration`` it is the only
+module of the port that imports gymnasium: ``gymca_torch``,
+``gymca_torch.core.env`` and the env modules load it on demand, so the rest
+of the port runs where gymnasium is not installed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import gymnasium as gym
 import gymnasium.spaces as gs
@@ -28,8 +31,10 @@ from gymca_torch.core.spaces import (
     TupleSpec,
 )
 from gymca_torch.envs.bulldozer import BulldozerCore
+from gymca_torch.envs.helicopter import HelicopterCore
 
-__all__ = ["GridSpace", "space_of", "GymCAEnv", "ForestFireBulldozerEnv"]
+__all__ = ["GridSpace", "space_of", "GymCAEnv", "ForestFireBulldozerEnv",
+           "ForestFireHelicopterEnv"]
 
 
 def _numpy_dtype(dtype) -> np.dtype:
@@ -39,38 +44,110 @@ def _numpy_dtype(dtype) -> np.dtype:
 
 
 class GridSpace(gs.Space):
-    """``gym.Space`` over integer lattices, a view of a :class:`GridSpec`."""
+    """``gym.Space`` over integer lattices, a view of a :class:`GridSpec`
+    (``gymca_tpu/core/gym_compat.py``).
 
-    def __init__(self, spec: GridSpec, seed: Optional[int] = None):
-        self.spec = spec
-        super().__init__(spec.shape, _numpy_dtype(spec.dtype), seed)
+    Construct from a cell count or an explicit cell-value list::
+
+        GridSpace(n=3, shape=(2, 2))
+        GridSpace(values=[0, 3, 25], shape=(2, 2), probs=[0.1, 0.9, 0.0])
+
+    or from a spec with :meth:`from_spec`.
+    """
+
+    def __init__(
+        self,
+        n: Optional[int] = None,
+        values: Optional[Sequence[int]] = None,
+        shape: tuple = (),
+        probs: Optional[Sequence[float]] = None,
+        dtype=np.int32,
+        seed: Optional[int] = None,
+    ):
+        np_dtype = _numpy_dtype(dtype)
+        self._spec = GridSpec(
+            shape=tuple(shape),
+            n=n,
+            values=None if values is None else tuple(int(v) for v in values),
+            probs=None if probs is None else tuple(probs),
+            dtype=torch.from_numpy(np.empty(0, np_dtype)).dtype,
+        )
+        self._named_by_values = values is not None
+        super().__init__(self._spec.shape, np_dtype, seed)
+
+    @classmethod
+    def from_spec(cls, spec: GridSpec, seed: Optional[int] = None) -> "GridSpace":
+        """The space of a spec, as ``GridSpec.to_gymnasium`` builds it."""
+        return cls(values=list(spec.values), shape=spec.shape, probs=list(spec.probs),
+                   dtype=spec.dtype, seed=seed)
+
+    @property
+    def spec(self) -> GridSpec:
+        """The underlying spec (its batched ``sample(keys)`` draws on a device)."""
+        return self._spec
 
     @property
     def values(self) -> np.ndarray:
-        return np.asarray(self.spec.values, dtype=self.dtype)
+        return np.asarray(self._spec.values, dtype=self.dtype)
+
+    @property
+    def n(self) -> int:
+        return self._spec.n
 
     @property
     def probs(self) -> np.ndarray:
-        return np.asarray(self.spec.probs)
+        return np.asarray(self._spec.probs)
 
-    def sample(self, mask=None, probability=None) -> np.ndarray:
-        p = self.probs / self.probs.sum()
-        return self.np_random.choice(self.values, size=self.shape, p=p)
+    @property
+    def size(self) -> int:
+        return self._spec.size
 
     def contains(self, x) -> bool:
+        # No dtype cast: it would accept 0.5 as 0, or 259 as 3 at int8.
+        # Input that is no array is outside, never an exception.
         try:
-            return self.spec.contains(np.asarray(x))
+            return self._spec.contains(np.asarray(x))
         except (TypeError, ValueError):
             return False
 
+    def sample(self, mask=None, probability=None) -> np.ndarray:
+        flat = self.np_random.choice(self.values, size=self.size, p=self.probs)
+        return flat.reshape(self.shape)
+
+    def __eq__(self, other):
+        if not isinstance(other, GridSpace):
+            return False
+        return self.shape == other.shape and np.array_equal(self.values, other.values)
+
     def __repr__(self):
-        return f"GridSpace(values={list(self.spec.values)}, shape={self.shape})"
+        inner = (f"values={list(self._spec.values)}" if self._named_by_values
+                 else f"n={self.n}")
+        return f"GridSpace({inner}, shape={self.shape})"
+
+    @property
+    def is_np_flattenable(self):
+        return True
+
+
+@gs.flatten.register(GridSpace)
+def _flatten_grid_space(space, x):
+    return np.asarray(x, dtype=space.dtype).flatten()
+
+
+@gs.flatdim.register(GridSpace)
+def _flatdim_grid_space(space):
+    return int(space.size)
+
+
+@gs.unflatten.register(GridSpace)
+def _unflatten_grid_space(space, x):
+    return np.asarray(x, dtype=space.dtype).reshape(space.shape)
 
 
 def space_of(spec):
     """The gymnasium space of a spec."""
     if isinstance(spec, GridSpec):
-        return GridSpace(spec)
+        return GridSpace.from_spec(spec)
     if isinstance(spec, BoxSpec):
         return gs.Box(spec.low, spec.high, shape=spec.shape, dtype=np.float32)
     if isinstance(spec, DiscreteSpec):
@@ -166,6 +243,9 @@ class GymCAEnv(gym.Env):
         grid = self.grid if grid is None else np.asarray(grid)
         return Counter(grid.flatten().tolist())
 
+    def render(self):
+        return None
+
 
 class ForestFireBulldozerEnv(GymCAEnv):
     """Classic gymnasium-API windy Bulldozer."""
@@ -176,3 +256,24 @@ class ForestFireBulldozerEnv(GymCAEnv):
         super().__init__(core, seed=seed)
         self.title = core.title
         self._empty, self._tree, self._fire = core._empty, core._tree, core._fire
+
+    def render(self):
+        from gymca_torch.utils.render import render_bulldozer
+
+        return render_bulldozer(self)
+
+
+class ForestFireHelicopterEnv(GymCAEnv):
+    """Classic gymnasium-API Helicopter."""
+
+    def __init__(self, nrows, ncols, seed: Optional[int] = None, **kwargs):
+        kwargs.pop("debug", None)
+        core = HelicopterCore(nrows, ncols, **kwargs)
+        super().__init__(core, seed=seed)
+        self.title = core.title
+        self._empty, self._tree, self._fire = core._empty, core._tree, core._fire
+
+    def render(self):
+        from gymca_torch.utils.render import render_helicopter
+
+        return render_helicopter(self)

@@ -1,31 +1,46 @@
-"""Train PPO on the Advanced Bulldozer: the training mode of ``scripts/run``.
+"""Train or evaluate on the Advanced Bulldozer: ``scripts/run`` on the port.
 
-    python3 -m gymca_torch.run -n 8 -z 256            # on the card
-    python3 -m gymca_torch.run -n 4 -z 16 --num-ppo-steps 8 --steps 64 --device-cpu
+    python3 -m gymca_torch.run -n 8 -z 256                 # train, on the card
+    python3 -m gymca_torch.run --no-train --steps 200      # evaluate a random actor
+    python3 -m gymca_torch.run --no-train --actor params --params outputs/checkpoints
+    python3 -m gymca_torch.run -n 2 -z 16 --no-train --gif --steps 32 --device-cpu
 
 Takes ``scripts/run``'s Environment, PPO, Visualization and Experiment
 flags and builds the same ``Args`` (``args_to_structured_args``), then the
-port's ``AdvancedForestFireBulldozerEnv`` and ``run_rollout_loop``.
-``--pallas-ca`` / ``--no-pallas-ca`` set ``use_fused_ca`` (the fused CUDA
-kernel on the card, or the XLA-path counterpart); neither leaves the env's
-default, the kernel on the card.  Metrics go to stdout, checkpoints (full
-state, every ``checkpoint_every`` iterations) and the final params
+port's ``AdvancedForestFireBulldozerEnv``.  ``--pallas-ca`` /
+``--no-pallas-ca`` set ``use_fused_ca`` (the fused CUDA kernel on the card,
+or the XLA-path counterpart); neither leaves the env's default, the kernel
+on the card.
+
+Training (``train``): ``run_rollout_loop`` with metrics to stdout and to
+``MetricsLogger`` (TensorBoard under ``--out-dir``/runs where the
+tensorboard package is installed, wandb with ``--track`` where wandb is),
+a greedy rollout recorded every ``--video-every`` iterations, checkpoints
+(full state, every ``checkpoint_every`` iterations) and the final params
 (``<run>_params.pt``) under ``--out-dir``.
 
+Evaluation (``--no-train``, ``evaluate``): an actor (``--actor random``,
+the key chain of ``scripts/run``'s random actor; ``scripted``, its tours;
+``params``, the greedy policy of the checkpoint under ``--params``) steps
+the env for ``min(--steps, 10000)`` steps.  The stepping loop
+(``eval_loop``) runs on the device and hands back the rewards and, with
+``--gif``, the captured frames; the host writers then compose the rich
+frames (agent observation | true grid with a wind arrow | dousing map) into
+one GIF per env (``save_video``, Pillow) and draw the terrain heatmaps
+(matplotlib).  ``--profile`` writes a ``torch.profiler`` trace of the loop.
+
 Runs on card ``--device`` (0); ``--device-cpu`` runs on the CPU instead,
-and without it and without a CUDA device it raises.  Not ported yet, and raising
-``NotImplementedError``: ``--no-train`` (evaluation and recording),
-``--gif``, ``--actor``/``--params`` (ROADMAP §1 item 8, with the renders of
-item 6), and ``--track``/``--video-every``, which need ``MetricsLogger``
-(item 6).
+and without it and without a CUDA device it raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import sys
 from pathlib import Path
+from typing import List, NamedTuple
+
+import numpy as np
 
 import torch
 
@@ -37,7 +52,9 @@ from gymca_torch.agents.args import (
     VisualizationArgs,
 )
 
-__all__ = ["parse_args", "args_to_structured_args", "build_env", "train", "main"]
+__all__ = ["parse_args", "args_to_structured_args", "build_env", "train", "evaluate",
+           "eval_loop", "make_actor", "scripted_actions", "compose_rich_frame",
+           "save_video", "save_gif", "write_recordings", "write_terrain_maps", "main"]
 
 DEFAULT_UPDATES = 10_000_000
 DEFAULT_MS_FRAME = 80
@@ -208,19 +225,34 @@ def build_env(args: Args, use_fused_ca=None, device=None):
     )
 
 
-def train(args: Args, use_fused_ca=None, device=None):
+def train(args: Args, use_fused_ca=None, device=None, video_every: int = 0):
     """Build the env, train, save the final params; returns the history."""
     from gymca_torch import rng
     from gymca_torch.agents.ppo import _default_log, run_rollout_loop
+    from gymca_torch.utils.metrics import MetricsLogger
 
     env = build_env(args, use_fused_ca, device)
     run_name = (f"{args.exp.exp_name}_lr{args.ppo.learning_rate}_s{args.exp.seed}"
                 f"_z{args.env.size}_n{args.env.num_envs}")
+    flat_config = {
+        **{f"ppo.{k}": v for k, v in vars(args.ppo).items()},
+        **{f"env.{k}": v for k, v in vars(args.env).items()},
+        **{f"exp.{k}": v for k, v in vars(args.exp).items()},
+    }
+    logger = MetricsLogger(log_dir=args.exp.log_dir or "runs", run_name=run_name,
+                           track=args.exp.track, config=flat_config)
+
+    def log_fn(iteration, metrics):
+        logger.log(metrics["global_step"], metrics)
+        _default_log(iteration, metrics, every=10)
 
     _, agent_state, history = run_rollout_loop(
-        env, args, key=rng.key(args.exp.seed, device=env.device),
-        log_fn=functools.partial(_default_log, every=10),
+        env, args, key=rng.key(args.exp.seed, device=env.device), log_fn=log_fn,
+        video_every=video_every,
+        video_fn=lambda it, frames: logger.log_video("rollout", frames,
+                                                     it * args.batch_size),
         device=env.device)
+    logger.close()
     out_dir = Path(args.exp.checkpoint_dir).parent
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"{run_name}_params.pt"
@@ -229,21 +261,284 @@ def train(args: Args, use_fused_ca=None, device=None):
     return history
 
 
+# --- evaluation: actors -----------------------------------------------------------------
+
+# Scripted evaluation tours (scripts/run's SCRIPTED_TOURS): run-length (move,
+# count) segments per grid size; the bulldozer shoots on every other step.
+# Moves: 0..8 Moore directions, 4 = stay.
+SCRIPTED_TOURS = {
+    32: [(3, 11), (7, 8), (7, 20), (1, 16), (3, 16), (5, 16)],
+    100: [(3, 44), (7, 40), (3, 35), (7, 35), (5, 35), (1, 35), (5, 1),
+          (1, 1), (4, 1), (3, 37), (7, 37), (5, 37), (1, 37)],
+    200: [(3, 104), (7, 110), (3, 32), (7, 32), (5, 32), (1, 32)],
+}
+
+MAX_EVAL_STEPS = 10_000
+
+
+def scripted_actions(size: int, num_envs: int, steps: int) -> np.ndarray:
+    """The per-size tour as a (steps, num_envs, 3) int32 action array.
+
+    Sizes without a tour get a square sweep scaled to the grid (down, right,
+    up, left); the tour ends standing still."""
+    tour = SCRIPTED_TOURS.get(
+        size, [(3, size // 3), (7, size // 3), (1, size // 3), (5, size // 3)])
+    moves = np.concatenate([np.full(c, m, np.int32) for m, c in tour])
+    if len(moves) < steps:
+        moves = np.concatenate([moves, np.full(steps - len(moves), 4, np.int32)])
+    moves = moves[:steps]
+    shoot = (np.arange(steps) % 2 == 0).astype(np.int32)
+    acts = np.stack([moves, shoot, np.zeros(steps, np.int32)], axis=1)
+    return np.repeat(acts[:, None, :], num_envs, axis=1)
+
+
+def make_actor(args: Args, env, actor: str = "random"):
+    """``get_action(obs_grid, context) -> (N, 3) int32`` on the env's device.
+
+    ``random``: per step a split of a key chain from ``rng.key(seed)``, moves
+    ``randint(k, (n,), 0, 9)`` and shots ``randint(fold_in(k, 1), (n,), 0, 2)``,
+    bit for bit with ``scripts/run``'s random actor; ``scripted``: the tour of
+    :func:`scripted_actions`, copied to the device once; ``params`` (or any
+    actor when ``args.exp.params_path`` is set, as in ``scripts/run``): the
+    greedy policy of the latest checkpoint under ``args.exp.params_path``."""
+    from gymca_torch import rng
+    from gymca_torch.config import TYPE_INT
+
+    dev = env.device
+    if args.exp.params_path or actor == "params":
+        from gymca_torch.agents.ppo import load_actor
+
+        return load_actor(args.exp.params_path, env, args, device=dev)
+    if actor == "scripted":
+        steps = min(args.viz.steps, MAX_EVAL_STEPS)
+        script = torch.as_tensor(
+            scripted_actions(args.env.size, args.env.num_envs, steps), device=dev)
+        t = 0
+
+        def get_action(obs_grid, context=None):
+            nonlocal t
+            a = script[min(t, len(script) - 1)]
+            t += 1
+            return a
+
+        return get_action
+    key = rng.key(args.exp.seed, device=dev)
+
+    def get_action(obs_grid, context=None):
+        nonlocal key
+        pair = rng.split(key)
+        key, k = pair[0], pair[1]
+        n = obs_grid.shape[0]
+        moves = rng.randint(k, (n,), 0, 9)
+        shoots = rng.randint(rng.fold_in(k, 1), (n,), 0, 2)
+        ext = torch.zeros((n,), dtype=TYPE_INT, device=dev)
+        return torch.stack([moves, shoots, ext], dim=1)
+
+    return get_action
+
+
+# --- evaluation: the stepping loop on the device ---------------------------------------
+
+
+class Capture(NamedTuple):
+    """One recorded step of every env, on the device: the agent's RGB
+    observation and the true grid in the day palette (uint8, (N, H, W, 3)),
+    the dousing map (N, H, W) and the wind index (N,)."""
+
+    agent_rgb: torch.Tensor
+    true_rgb: torch.Tensor
+    dousing: torch.Tensor
+    wind_index: torch.Tensor
+
+
+class EvalResult(NamedTuple):
+    rewards: torch.Tensor  # (steps, N) float32, each step's reward
+    total_reward: torch.Tensor  # (N,) float64, summed step by step
+    captures: List[Capture]
+
+
+def capture_every(steps: int) -> int:
+    """Steps between recorded frames: about 64 frames an evaluation."""
+    return max(steps // 64, 1)
+
+
+def eval_loop(env, get_action, steps: int, record: bool = False) -> EvalResult:
+    """Reset ``env`` and step it ``steps`` times with ``get_action``,
+    restarting terminated envs (``conditional_reset``).  Everything stays on
+    the env's device and nothing waits for it; with ``record``, a
+    :class:`Capture` every :func:`capture_every` steps."""
+    obs, info = env.reset()
+    n = env.num_envs
+    total = torch.zeros(n, dtype=torch.float64, device=env.device)
+    rewards, captures = [], []
+    every = capture_every(steps)
+    day = torch.zeros(n, dtype=torch.int32, device=env.device)
+    for t in range(steps):
+        actions = get_action(obs[0], obs[1])
+        step_tuple = env.stateless_step(actions, obs, info)
+        reward = step_tuple[1]
+        rewards.append(reward)
+        total += reward
+        obs, _, _, _, info = env.conditional_reset(step_tuple, actions)
+        if record and t % every == 0:
+            pe = obs[1]["per_env_context"]
+            true_rgb = env._grid_to_rgb(pe["true_grid"], day, pe["dousing_count"],
+                                        obs[1]["position"])
+            captures.append(Capture(obs[0].to(torch.uint8), true_rgb.to(torch.uint8),
+                                    pe["dousing_count"].clone(), pe["wind_index"].clone()))
+    stacked = torch.stack(rewards) if rewards else torch.zeros(0, n, device=env.device)
+    return EvalResult(stacked, total, captures)
+
+
+# --- evaluation: host writers ----------------------------------------------------------
+
+# Wind arrow direction per wind_index (the terrain's WIND_THETAS order: N, NE,
+# E, SE, S, SW, W, NW), as (drow, dcol) unit steps.
+WIND_ARROWS = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
+
+
+def _stamp_wind_arrow(rgb: np.ndarray, wind_index: int) -> np.ndarray:
+    """Draw the wind direction as a red pixel ray from the panel's top-left
+    anchor, in place; returns ``rgb``."""
+    h, w, _ = rgb.shape
+    length = max(min(h, w) // 8, 4)
+    r0 = c0 = length + 2
+    dr, dc = WIND_ARROWS[wind_index % 8]
+    for k in range(length):
+        r, c = r0 + dr * k, c0 + dc * k
+        if 0 <= r < h and 0 <= c < w:
+            rgb[r, c] = (230, 40, 40)
+    rgb[r0, c0] = (0, 0, 0)  # tail anchor
+    return rgb
+
+
+def compose_rich_frame(agent_rgb, true_rgb, dousing, wind_index: int) -> np.ndarray:
+    """Agent observation | true grid (day palette, wind arrow) | dousing map,
+    side by side, with 2-pixel white separators."""
+    h = agent_rgb.shape[0]
+    true_panel = _stamp_wind_arrow(true_rgb.copy(), wind_index)
+    dous_panel = (0.25 * true_rgb + 0.75 * 255.0).astype(np.uint8)
+    dous_panel[dousing > 0] = (30, 90, 220)
+    sep = np.full((h, 2, 3), 255, np.uint8)
+    return np.concatenate([agent_rgb, sep, true_panel, sep, dous_panel], axis=1)
+
+
+def save_gif(frames, path: Path, duration_ms: float):
+    """(T, H, W, 3) uint8 frames -> an animated GIF scaled 4x (Pillow)."""
+    from PIL import Image
+
+    imgs = [Image.fromarray(f).resize((f.shape[1] * 4, f.shape[0] * 4), Image.NEAREST)
+            for f in frames]
+    imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=duration_ms,
+                 loop=0)
+
+
+def save_video(frames, path: Path, duration_ms: float) -> Path:
+    """One env's recording: an mp4 through moviepy where it is installed,
+    else an animated GIF."""
+    try:
+        from moviepy.editor import ImageSequenceClip
+    except ImportError:
+        gif = path.with_suffix(".gif")
+        save_gif(frames, gif, duration_ms)
+        return gif
+    big = np.repeat(np.repeat(frames, 4, axis=1), 4, axis=2)
+    clip = ImageSequenceClip(list(big), fps=max(1000.0 / duration_ms, 1))
+    mp4 = path.with_suffix(".mp4")
+    clip.write_videofile(str(mp4), logger=None)
+    return mp4
+
+
+def rich_frames(captures: List[Capture]) -> List[np.ndarray]:
+    """Each env's (T, H, 3W + 4, 3) rich frames from the captures, the
+    tensors copied to the host once."""
+    if not captures:
+        return []
+    host = [np.stack([getattr(c, f).cpu().numpy() for c in captures])
+            for f in Capture._fields]
+    agent, true, dous, wind = host
+    return [np.stack([compose_rich_frame(agent[t, i], true[t, i], dous[t, i],
+                                         int(wind[t, i])) for t in range(len(captures))])
+            for i in range(agent.shape[1])]
+
+
+def write_recordings(captures: List[Capture], out_dir: Path, duration_ms: float):
+    """One recording per env (``env<i>.gif``, or ``.mp4``), written by a pool
+    of threads (the encoders release the GIL); returns the paths."""
+    jobs = [(frames, out_dir / f"env{i}", duration_ms)
+            for i, frames in enumerate(rich_frames(captures))]
+    if len(jobs) > 1:
+        from multiprocessing.dummy import Pool
+        from os import cpu_count
+
+        with Pool(min(len(jobs), cpu_count() or 1)) as pool:
+            return pool.starmap(save_video, jobs)
+    return [save_video(*j) for j in jobs]
+
+
+def write_terrain_maps(env, out_dir: Path) -> List[Path]:
+    """The terrain heatmaps of every env, ``terrain_<name>_env<i>.png``."""
+    import matplotlib.pyplot as plt
+
+    written = []
+    for name, figs in [("altitude", env.altitude_render()),
+                       ("density", env.density_render()),
+                       ("vegitation", env.vegitation_render())]:
+        for i, fig in enumerate(figs):
+            path = out_dir / f"terrain_{name}_env{i}.png"
+            fig.savefig(path, dpi=100)
+            plt.close(fig)
+            written.append(path)
+    return written
+
+
+def evaluate(args: Args, use_fused_ca=None, device=None, actor: str = "random",
+             env=None) -> EvalResult:
+    """``--no-train``: step an actor through the env, then write the
+    recordings (``--gif``) and the terrain heatmaps under ``--out-dir``.
+
+    The heatmaps need matplotlib and the recordings Pillow: where matplotlib
+    is missing (the card's machine may lack it) the heatmaps are skipped with
+    a note; ``--gif`` without Pillow raises before the loop starts."""
+    import importlib.util
+
+    from gymca_torch.utils.metrics import profile_trace
+
+    if args.viz.gif and importlib.util.find_spec("PIL") is None:
+        raise ImportError("--gif writes GIFs through Pillow, which is not installed")
+    env = env if env is not None else build_env(args, use_fused_ca, device)
+    out_dir = Path(args.exp.checkpoint_dir).parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    get_action = make_actor(args, env, actor)
+    steps = min(args.viz.steps, MAX_EVAL_STEPS)
+
+    with profile_trace(args.exp.profile, str(out_dir / "profile")):
+        result = eval_loop(env, get_action, steps, record=args.viz.gif)
+    print(f"eval: {steps} steps, mean reward/env: {result.total_reward.mean().item():.3f}")
+
+    if args.viz.gif:
+        written = write_recordings(result.captures, out_dir, args.viz.duration)
+        kinds = {p.suffix for p in written}
+        print(f"wrote {len(written)} recordings ({'/'.join(sorted(kinds))}) to {out_dir}")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: terrain maps not written")
+    else:
+        write_terrain_maps(env, out_dir)
+        print(f"wrote terrain maps to {out_dir}")
+    return result
+
+
 def main(argv=None):
     raw = parse_args(argv)
-    left_out = [flag for flag, on in (("--no-train", raw.no_train), ("--gif", raw.gif),
-                                      ("--actor", raw.actor != "random"),
-                                      ("--params", raw.params is not None),
-                                      ("--track", raw.track),
-                                      ("--video-every", raw.video_every > 0)) if on]
-    if left_out:
-        raise NotImplementedError(
-            f"{', '.join(left_out)}: not ported yet (evaluation, recording and the "
-            f"actor choices wait for ROADMAP §1 item 8, with the renders and "
-            f"MetricsLogger of item 6); this entry point trains only")
+    if raw.actor == "params" and not raw.params:
+        sys.exit("--actor params requires --params <checkpoint dir>")
     args = args_to_structured_args(raw)
     use_fused_ca = True if raw.pallas_ca else (False if raw.no_pallas_ca else None)
-    train(args, use_fused_ca, "cpu" if raw.device_cpu else f"cuda:{raw.device}")
+    device = "cpu" if raw.device_cpu else f"cuda:{raw.device}"
+    if args.exp.no_train:
+        evaluate(args, use_fused_ca, device, raw.actor)
+    else:
+        train(args, use_fused_ca, device, raw.video_every)
     return 0
 
 

@@ -501,3 +501,96 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         for k, v in leaves.items():
             assert state.params[g][k].device.type == "cuda"
             assert torch.equal(state.params[g][k], v)
+
+
+# --- slice 7: the Helicopter and the evaluation -----------------------------------------
+
+
+def helicopter_run(core, n, actions, seed=0):
+    from gymca_torch.core.env import autoreset_step
+
+    state = core.initial_state(rng.split(rng.key(seed, device=core.device), n))
+    trail = []
+    for a in actions:
+        state, out = autoreset_step(core, state, a.to(core.device))
+        trail.append((state, out))
+    return trail
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,n,steps", [((42, 42), 16, 70), ((17, 23), 5, 40)])
+def test_helicopter_on_the_card_matches_the_cpu(cuda, size, n, steps):
+    """Every leaf of every step, bit for bit, over three freeze cycles and
+    more at 42²."""
+    from gymca_torch.envs.helicopter import HelicopterCore
+
+    actions = torch.from_numpy(np.random.default_rng(1).integers(0, 9, (steps, n))
+                               .astype(np.int32))
+    card = helicopter_run(HelicopterCore(*size), n, actions)
+    cpu = helicopter_run(HelicopterCore(*size, device="cpu"), n, actions)
+    for t, ((sa, oa), (sb, ob)) in enumerate(zip(card, cpu)):
+        assert sa.grid.device.type == "cuda"
+        for x, y in [(sa.grid, sb.grid), (sa.key, sb.key), (oa.reward, ob.reward),
+                     (sa.steps_elapsed, sb.steps_elapsed), (oa.info["hit"], ob.info["hit"]),
+                     *((sa.context[k], sb.context[k]) for k in sa.context)]:
+            assert torch.equal(x.cpu(), y), f"step {t}"
+
+
+@pytest.mark.gpu
+def test_helicopter_step_has_no_host_sync(cuda):
+    from gymca_torch.core.env import autoreset_step
+    from gymca_torch.envs.helicopter import HelicopterCore
+
+    core = HelicopterCore(42, 42)
+    state = core.initial_state(rng.split(rng.key(0), 256))
+    actions = torch.randint(0, 9, (30, 256), device=cuda, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a in actions:
+            state, out = autoreset_step(core, state, a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out.reward).all() and not out.terminated.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("actor", ["random", "scripted", "params"])
+def test_eval_loop_on_the_card(cuda, actor, tmp_path):
+    """``gymca_torch.run``'s evaluation loop at 4 envs x 64² on the fused
+    env: one Alexandridis launch a step, no host sync, finite rewards; for
+    the random and scripted actors the same rewards as the same loop on the
+    CPU (the kernel's plain version there).  The params actor's greedy
+    argmax may differ across devices where two logits nearly tie, so its
+    rewards are not compared."""
+    from gymca_torch import run
+    from gymca_torch.agents.checkpoint import CheckpointManager
+    from gymca_torch.agents.ppo import PPOTrainer
+
+    argv = ["-n", "4", "-z", "64", "--no-train", "--steps", "16"]
+    if actor == "params":
+        args = run.args_to_structured_args(run.parse_args(argv))
+        trainer = PPOTrainer(run.build_env(args, device="cpu"), args, device="cpu")
+        CheckpointManager(str(tmp_path)).save_state(1, trainer.agent_state, trainer.key)
+        argv += ["--params", str(tmp_path)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        args = run.args_to_structured_args(run.parse_args(argv))
+        env = run.build_env(args, use_fused_ca=True, device=device)
+        get_action = run.make_actor(args, env, actor)
+        run.eval_loop(env, get_action, 1)  # warm: the kernel build and cuDNN
+        get_action = run.make_actor(args, env, actor)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            before = ak.alexandridis_fused_step.launches
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            results[device] = run.eval_loop(env, get_action, 16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if device == "cuda":
+            assert ak.alexandridis_fused_step.launches == before + 16
+    assert torch.isfinite(results["cuda"].rewards).all()
+    if actor != "params":
+        np.testing.assert_array_equal(results["cuda"].rewards.cpu().numpy(),
+                                      results["cpu"].rewards.numpy())

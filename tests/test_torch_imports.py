@@ -1,7 +1,10 @@
 """The port stands alone: no JAX, no gymca_tpu, no flax, optax or orbax
 anywhere in ``gymca_torch/`` (its probes and trainer included) or
-``chip_smoke.py``, and gymnasium only in the on-demand adapter module
-``gymca_torch/gym_env.py``.
+``chip_smoke.py``, and gymnasium only in the gymnasium adapter modules
+(``gym_env.py``, loaded on demand, and ``registration.py``, which
+registers the ids only where gymnasium can be imported).  ``import
+gymca_torch`` and the cores work where gymnasium and matplotlib are
+missing, as on the card's machine.
 
 This process already imported jax at start-up, so ``sys.modules`` cannot
 show what the port imports: every source is parsed with ``ast`` instead.
@@ -16,11 +19,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax", "orbax")
-GYM_ADAPTER = ROOT / "gymca_torch" / "gym_env.py"
+GYM_ADAPTERS = {ROOT / "gymca_torch" / "gym_env.py", ROOT / "gymca_torch" / "registration.py"}
 PROBES = ("timing", "ca_variants_kernel", "dma_floor_kernel", "floor_kernel",
           "exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
           "exp_kernel_overhead", "exp_floor", "sass")
 AGENTS = ("args", "networks", "optim", "ppo", "checkpoint")
+# The public surface, Helicopter and the utilities (ROADMAP §1 items 5-6).
+SURFACE = ("ops/drossel", "envs/helicopter", "registration", "version", "compat",
+           "utils/__init__", "utils/neighbors", "utils/render", "utils/metrics")
 
 
 def imported_modules(path: Path):
@@ -49,6 +55,8 @@ def test_port_sources_exist():
     assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
+    for mod in SURFACE:
+        assert f"gymca_torch/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -57,7 +65,7 @@ def test_no_reference_imports(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
         if top == "gymnasium":
-            assert path == GYM_ADAPTER, f"{path.name} imports gymnasium"
+            assert path in GYM_ADAPTERS, f"{path.name} imports gymnasium"
 
 
 def test_ast_scan_catches_forbidden_imports(tmp_path):
@@ -77,6 +85,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     "gymca_torch.envs.extensions", "gymca_torch.envs.advanced", "gymca_torch.probes",
     *(f"gymca_torch.probes.{p}" for p in PROBES),
     "gymca_torch.agents", *(f"gymca_torch.agents.{m}" for m in AGENTS), "gymca_torch.run",
+    *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in SURFACE),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
@@ -105,3 +114,36 @@ def test_advanced_env_asks_for_the_card_by_default():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AdvancedForestFireBulldozerEnv(16, 16, key=rng.key(0, device="cpu"), num_envs=1)
+
+
+def test_package_works_without_gymnasium_and_matplotlib():
+    """As on the card's machine: with gymnasium and matplotlib unimportable,
+    ``import gymca_torch`` registers nothing and the Helicopter core, the
+    renders' module and the entry point still import and run; the gym
+    surface raises ImportError only when asked for."""
+    import subprocess
+    import sys
+
+    script = """
+import sys
+for name in ("gymnasium", "matplotlib"):
+    sys.modules[name] = None
+import torch
+import gymca_torch
+from gymca_torch import rng
+from gymca_torch.core.env import autoreset_step
+from gymca_torch.envs.helicopter import HelicopterCore
+import gymca_torch.utils.render, gymca_torch.utils.metrics, gymca_torch.run
+core = HelicopterCore(8, 8, device="cpu")
+state = core.initial_state(rng.split(rng.key(0, device="cpu"), 3))
+state, out = autoreset_step(core, state, torch.tensor([0, 4, 8]))
+assert out.reward.shape == (3,) and gymca_torch.__version__
+try:
+    gymca_torch.GridSpace
+except ImportError:
+    print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

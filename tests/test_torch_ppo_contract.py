@@ -343,9 +343,29 @@ def test_run_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--no-train"], ["--gif"], ["--actor", "scripted"],
-                                   ["--params", "ckpt"], ["--track"], ["--video-every", "5"]])
-def test_run_flags_not_ported_raise(flags):
+                                   ["--params", "ckpt"], ["--track"], ["--video-every", "1"]])
+def test_run_flags_not_ported_raise(flags, tmp_path, capsys):
+    """The flags that raised ``NotImplementedError`` before evaluation and
+    ``MetricsLogger`` were ported now run (the name is kept from then).  The
+    evaluation flags run 2 steps of 1 env with ``--no-train`` (a missing
+    ``--params`` checkpoint raises ``FileNotFoundError``); ``--track`` and
+    ``--video-every`` train, logging through ``MetricsLogger``."""
     from gymca_torch import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(RUN_ARGS + ["--device-cpu"] + flags)
+    out = ["--device-cpu", "--out-dir", str(tmp_path)]
+    if flags[0] in ("--track", "--video-every"):
+        assert run.main(RUN_ARGS + ["--steps", "32"] + flags + out) == 0
+        runs = next((tmp_path / "runs").iterdir())
+        assert list(runs.glob("events.out.tfevents.*"))
+        if flags[0] == "--video-every":
+            assert (runs / "rollout_32.gif").exists()
+        return
+    evaluation = ["--no-train", "--num-envs", "1", "--size", "16", "--steps", "2"]
+    if flags[0] == "--params":
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            run.main(evaluation + flags + out)
+        return
+    assert run.main(evaluation + flags + out) == 0
+    assert "eval: 2 steps" in capsys.readouterr().out
+    assert (tmp_path / "terrain_altitude_env0.png").exists()
+    assert (tmp_path / "env0.gif").exists() == (flags[0] == "--gif")
