@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six paths, five of them carried by kernels written by hand in CUDA:
+Ten paths, seven of them carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -18,7 +18,12 @@ Six paths, five of them carried by kernels written by hand in CUDA:
   kernel (one launch per env step) beside cuDNN's convs;
 * slice 7: the Helicopter (``HelicopterCore``, plain torch ops, as the JAX
   package's Drossel–Schwabl CA is plain XLA) and ``gymca_torch.run``'s
-  evaluation loop on the Advanced env, carried by the Alexandridis kernel.
+  evaluation loop on the Advanced env, carried by the Alexandridis kernel;
+* slice 8: pinecone spotting (plain torch ops: the JAX package spots them
+  in plain XLA) and the legacy sequential spec (NumPy on the host), then
+  ``python3 -m gymca_torch.train_curve`` and ``python3 -m
+  gymca_torch.eval_policy`` (their ``main``), carried by the Alexandridis
+  kernel in ``single`` mode.
 
 Phases, each fatal on failure:
 
@@ -137,10 +142,36 @@ Phases, each fatal on failure:
     its plain version (tolerance 0); steps/s, and a profiler trace of the
     random actor's loop.  Nothing is rendered (the card's machine has no
     matplotlib);
-12. one JSON line describing every kernel, one per path (the Alexandridis
-    kernel's with its launches on each path), then ``{"train": ...}``,
-    ``{"helicopter": ...}`` and ``{"eval": ...}``;
-13. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+12. slice 8, ``[pinecones]``: the Advanced env with ``enable_pinecones`` at
+    64 envs x 256² (the XLA-path counterpart: no Alexandridis launch) for 20
+    steps from a reset under ``set_sync_debug_mode("error")``: ms a step,
+    and a profiler trace (device kernels a step, idle share); then the card
+    against the CPU, every leaf bit for bit, at 4 envs x 64² for 30 steps
+    from a burning block, which fails unless embers were lit and some cell
+    was hit by a lit entry followed by an unlit one (the landing order
+    decides it);
+13. slice 8, ``[legacy]``: ``AlexandridisCA.sequential_prototype`` at 32² for
+    3 passes from a Generator seed, on the host (the card's machine has no
+    JAX): twice, equal, cells in {0, 1, 2}, some changed;
+14. slice 8, ``[curve]``: ``gymca_torch.train_curve`` at 32 envs x 256², 2
+    iterations, ``--pallas-ca --bf16``, artifacts in a temporary directory:
+    2 x 128 Alexandridis launches, the kernel's inputs at the first and last
+    launch of each iteration held against its plain version (tolerance 0),
+    finite metrics, the JSON's ``hardware`` naming the card; then round 5's
+    recipe flags, cut (modf: the XLA-path counterpart, no launch), and the
+    same with ``--pallas-ca``, which must warn and fall back;
+15. slice 8, ``[policy]``: ``gymca_torch.eval_policy`` on ``[curve]``'s blob,
+    16 envs, 100 steps, ``--probes``, each episode loop under
+    ``set_sync_debug_mode("error")``: exactly 400 Alexandridis launches, the
+    kernel held against its plain version at each policy's first and last
+    launch (tolerance 0), steps/s per policy; then the modf blob at 50 steps
+    with no launch;
+16. one JSON line describing every kernel, one per path (the Alexandridis
+    kernel's with its launches and its error on each path), then
+    ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
+    ``{"pinecones": ...}``, ``{"legacy": ...}``, ``{"curve": ...}`` and
+    ``{"policy": ...}``;
+17. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -207,6 +238,28 @@ HELI_SIZE, HELI_ENVS, HELI_STEPS = (42, 42), 4096, 200
 HELI_BIG_SIZE, HELI_BIG_ENVS, HELI_BIG_STEPS = (256, 256), 256, 50
 HELI_PARITY_ENVS, HELI_PARITY_STEPS = 64, 70
 EVAL_ARGV = ["-n", "8", "-z", "256", "--no-train", "--steps", "200"]
+# Slice 8.  Pinecones: the Advanced env at the bench's cell (bench.py:143-195,
+# 64 x 256²) with enable_pinecones, 20 steps from a reset; card against CPU at
+# 4 envs x 64² for 30 steps from a burning block.  The curve:
+# scripts/train_curve.py's defaults at 256² (32 envs, 128 steps an iteration)
+# with --pallas-ca --bf16, cut from 800 iterations to 2; round 5's recipe
+# (scripts/sweep_r5_kickstart256.sh:12-16) cut from 32 envs x 1500
+# iterations (300 BC, 150 warmup, decay 900) to 8 envs x 2 iterations in two
+# stages (1 BC, 1 warmup, decay 2).  The policy evaluation (the same
+# script's :25-27, 16 envs) cut from 20,000 steps to 100 (50 for the modf
+# blob).
+PINE_ENVS, PINE_SIZE, PINE_STEPS, PINE_PROFILE_STEPS = 64, 256, 20, 3
+PINE_PARITY_ENVS, PINE_PARITY_SIZE, PINE_PARITY_STEPS = 4, 64, 30
+LEGACY_SIZE, LEGACY_PASSES = 32, 3
+CURVE_ARGV = ["--size", "256", "--num-envs", "32", "--iters", "2", "--pallas-ca", "--bf16"]
+CURVE_STEPS = 128  # scripts/train_curve.py's steps an iteration
+RECIPE_ARGV = ["--size", "256", "--num-envs", "8", "--iters", "2", "--bf16",
+               "--ca-repeat-mode", "modf", "--gamma", "0.999", "--shape-tree-coef", "20",
+               "--shape-dist-coef", "2", "--shape-douse-coef", "20", "--centroid-features",
+               "--bc-iters", "1", "--critic-warmup-iters", "1", "--kickstart-coef", "1.0",
+               "--kickstart-decay", "2", "--sm-schedule", "2:0.5,1:0.5"]
+POLICY_ENVS, POLICY_STEPS, POLICY_MODF_STEPS = 16, 100, 50
+POLICIES = ("trained-greedy", "idle", "random", "greedy-fire")
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
@@ -1329,6 +1382,324 @@ def eval_phase(card, trained_state):
             **prof}
 
 
+# --- slice 8: pinecones, the legacy spec, the curve and the policy evaluation -----------
+
+
+def landing_stats(rows, cols, lit, h, w):
+    """On the device, of one pinecone landing (every entry of every cell,
+    lit or not): the lit entries, the cells hit by more than one entry and
+    the cells where a lit entry is followed by an unlit one (there the order
+    of the landings decides the cell)."""
+    at = rows.long() * w + cols
+    order = torch.arange(at.shape[1], device=at.device).expand_as(at)
+    empty = torch.full((at.shape[0], h * w), -1, dtype=torch.int64, device=at.device)
+    hits = torch.zeros_like(empty).scatter_add_(1, at, torch.ones_like(at))
+    last = empty.scatter_reduce(1, at, order, reduce="amax")
+    last_lit = empty.scatter_reduce(1, at, torch.where(lit, order, -1), reduce="amax")
+    return torch.stack([lit.sum(), (hits > 1).sum(), ((last_lit >= 0) & (last_lit < last)).sum()])
+
+
+def pinecone_parity(card_stats):
+    """The pinecone env on the card against the CPU from a burning block:
+    every leaf, bit for bit.  ``card_stats`` collects the card's landings."""
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+
+    n, size = PINE_PARITY_ENVS, PINE_PARITY_SIZE
+    cpu = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(SEED, device="cpu"),
+                                         num_envs=n, enable_pinecones=True, device="cpu")
+    gpu = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(SEED, device="cpu"),
+                                         num_envs=n, enable_pinecones=True,
+                                         terrain=cpu._terrain_ctx)
+    (c_obs, c_info), (g_obs, g_info) = cpu.reset(), gpu.reset()
+    for pe in (c_obs[1]["per_env_context"], g_obs[1]["per_env_context"]):
+        block = pe["true_grid"][:, size // 3:2 * size // 3, size // 3:2 * size // 3]
+        block[block == 1] = 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    mismatches = []
+    for i, a in enumerate(ki.adv_actions(gen, PINE_PARITY_STEPS, n)):
+        cs = cpu.conditional_reset(cpu.stateless_step(a.cpu(), c_obs, c_info), a.cpu())
+        gs = gpu.conditional_reset(gpu.stateless_step(a, g_obs, g_info), a)
+        (c_obs, c_info), (g_obs, g_info) = (cs[0], cs[4]), (gs[0], gs[4])
+        pairs = {"rgb": (g_obs[0], c_obs[0]), "reward": (gs[1], cs[1]),
+                 "position": (g_obs[1]["position"], c_obs[1]["position"]),
+                 "time": (g_obs[1]["time"], c_obs[1]["time"])}
+        pairs.update({k: (g_obs[1]["per_env_context"][k], v)
+                      for k, v in c_obs[1]["per_env_context"].items()})
+        pairs.update({f"info.{k}": (g_info[k], v) for k, v in c_info.items()})
+        mismatches += [f"step {i} {k}" for k, (x, y) in pairs.items()
+                       if not torch.equal(x.cpu(), y)]
+    fires = int((c_obs[1]["per_env_context"]["true_grid"] == 2).sum())
+    return mismatches, fires, len(card_stats)
+
+
+def pinecone_phase(card, gen):
+    """``[pinecones]`` (module docstring, phase 12)."""
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+    from gymca_torch.ops.alexandridis import AlexandridisCA
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+
+    t_phase = time.perf_counter()
+    env = AdvancedForestFireBulldozerEnv(PINE_SIZE, PINE_SIZE, key=rng.key(SEED),
+                                         num_envs=PINE_ENVS, enable_pinecones=True)
+    if env.use_fused_ca:
+        fail("the pinecone env took the fused kernel, which has no pinecones")
+    obs, info = env.reset()
+    acts = ki.adv_actions(gen, PINE_STEPS, PINE_ENVS)
+    ki.adv_run(env, obs, info, acts[:1])  # warm: the compass table, the allocator
+    torch.cuda.synchronize()
+    alexandridis_fused_step.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        end_obs, _, last = ki.adv_run(env, obs, info, acts)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k2 = alexandridis_fused_step.launches
+    fires = (end_obs[1]["per_env_context"]["true_grid"] == 2).sum(dim=(1, 2)).float()
+    step_ms = dt * 1e3 / PINE_STEPS
+    log(f"[pinecones] [{card}] {PINE_ENVS} envs at {PINE_SIZE}² with pinecones, "
+        f"{PINE_STEPS} steps of stateless_step + conditional_reset under "
+        f"sync_debug_mode=error in {dt:.3f}s: {step_ms} ms/step, "
+        f"{PINE_ENVS * PINE_STEPS / dt} env-steps/s; {k2} alexandridis launches (the XLA-path "
+        f"counterpart); mean reward {last[1].mean().item()}, fires per env "
+        f"{fires.mean().item()}")
+    if k2 != 0 or not torch.isfinite(last[1]).all():
+        fail("the pinecone path launched the fused kernel or gave rewards that are not finite")
+    prof = profile_steps(lambda: ki.adv_run(env, obs, info, acts[:PINE_PROFILE_STEPS]),
+                         PINE_PROFILE_STEPS, f"pinecones {PINE_ENVS} x {PINE_SIZE}²", card)
+    if prof is None:
+        fail("the profiler saw no device time on the pinecone path")
+
+    card_stats = []
+    real_land = AlexandridisCA._land_pinecones
+
+    def land(self, grid, fire_age, rows, cols, lit, ages):
+        out = real_land(self, grid, fire_age, rows, cols, lit, ages)
+        if grid.is_cuda:
+            card_stats.append(torch.cat([landing_stats(rows, cols, lit, *grid.shape[-2:]),
+                                         (out[0] != grid).sum()[None]]))
+        return out
+
+    AlexandridisCA._land_pinecones = land
+    try:
+        mismatches, parity_fires, steps = pinecone_parity(card_stats)
+    finally:
+        AlexandridisCA._land_pinecones = real_land
+    lit, dup_cells, mixed, lights = (int(v) for v in torch.stack(card_stats).sum(0).tolist())
+    log(f"[pinecones] {PINE_PARITY_ENVS} envs at {PINE_PARITY_SIZE}² x {PINE_PARITY_STEPS} "
+        f"steps from a burning block: card against CPU {len(mismatches)} leaf mismatches; "
+        f"{lit} embers lit; landings on a cell hit by several entries {dup_cells}, of them "
+        f"{mixed} with a lit entry followed by an unlit one; {lights} cells lit by pinecones; "
+        f"{parity_fires} fires at the end")
+    if mismatches:
+        fail(f"the pinecone env on the card differs from the CPU: {mismatches[:10]}")
+    if steps != PINE_PARITY_STEPS or lit == 0 or mixed == 0:
+        fail("the pinecone parity run lit no ember or had no duplicate landing that the "
+             "order decides")
+    log(f"[pinecones] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"card": card, "envs": PINE_ENVS, "size": PINE_SIZE, "steps": PINE_STEPS,
+            "ms_per_step": step_ms, "env_steps_per_sec": PINE_ENVS * PINE_STEPS / dt,
+            "alexandridis_launches": k2, "card_vs_cpu_mismatches": len(mismatches),
+            "parity_embers_lit": lit, "parity_duplicate_cells": dup_cells,
+            "parity_order_decided_cells": mixed, "parity_cells_lit": lights, **prof}
+
+
+def legacy_run(seed):
+    """``LEGACY_PASSES`` passes of the legacy sequential spec at
+    ``LEGACY_SIZE``² from one Generator seed: the final grid, ages and wind
+    index as numpy."""
+    import numpy as np
+
+    from gymca_torch.ops.alexandridis import AlexandridisCA
+
+    r = np.random.default_rng(seed)
+    n = LEGACY_SIZE
+    grid = r.choice(np.asarray([0, 1, 1, 2]), (n, n)).astype(np.int64)
+    ctx = {"winds": [(r.uniform(0, 1.2, (3, 3)), r.uniform(0, 2.5, (3, 3))) for _ in range(8)],
+           "wind_index": 0, "density": r.integers(1, 6, (n, n)),
+           "vegetation": r.integers(1, 6, (n, n)), "slope": r.uniform(-20, 20, (n, n)),
+           "fire_age": r.integers(1, 8, (n, n)), "p_tree": 0.05, "p_wind_change": 0.3}
+    op = AlexandridisCA.sequential_prototype(0, 1, 2, rng=np.random.default_rng(seed))
+    start = grid
+    for _ in range(LEGACY_PASSES):
+        grid, ctx = op.update(grid, ctx)
+    return start, grid, ctx["fire_age"], ctx["wind_index"]
+
+
+def legacy_phase():
+    """``[legacy]`` (module docstring, phase 13)."""
+    import hashlib
+
+    t0 = time.perf_counter()
+    start, grid, ages, wind = legacy_run(SEED)
+    dt = time.perf_counter() - t0
+    again = legacy_run(SEED)
+    same = (bool((again[1] == grid).all()) and bool((again[2] == ages).all())
+            and again[3] == wind)
+    digest = hashlib.sha256(grid.tobytes() + ages.astype("int64").tobytes()).hexdigest()[:16]
+    counts = {v: int((grid == v).sum()) for v in (0, 1, 2)}
+    log(f"[legacy] SequentialAlexandridisCA at {LEGACY_SIZE}² for {LEGACY_PASSES} passes from "
+        f"Generator seed {SEED}, on the host: {dt:.3f}s; cells empty/tree/fire {counts}, "
+        f"{int((grid != start).sum())} cells changed, wind index {wind}; a second run from "
+        f"the seed equal: {same}; digest {digest}")
+    if not same or set(counts) != {0, 1, 2} or sum(counts.values()) != grid.size:
+        fail("the legacy spec is not deterministic from its seed or left cells out of {0, 1, 2}")
+    if not (grid != start).any():
+        fail("the legacy spec changed no cell in its passes")
+    return {"size": LEGACY_SIZE, "passes": LEGACY_PASSES, "seconds": dt, "counts": counts,
+            "digest": digest}
+
+
+def curve_phase(card, out):
+    """``[curve]`` (module docstring, phase 14).  Returns the phase's
+    summary, the recorded K2 error and the two blobs' paths."""
+    import warnings
+
+    from gymca_torch import train_curve
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    blob = out / "curve.pkl"
+    keep = {0, CURVE_STEPS - 1, CURVE_STEPS, 2 * CURVE_STEPS - 1}
+    torch.cuda.synchronize()
+    alexandridis_fused_step.launches = 0
+    with ki.alexandridis_recorder(keep) as recorded:
+        t0 = time.perf_counter()
+        result = train_curve.main(CURVE_ARGV + ["--tag", "smoke", "--out", str(out),
+                                                "--save-params", str(blob)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = alexandridis_fused_step.launches
+    history = result["history"]
+    err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in recorded)
+    log(f"[curve] [{card}] train_curve {' '.join(CURVE_ARGV)}: {wall:.1f}s wall, samples/s "
+        f"(SPS) {[h['SPS'] for h in history]}, {launches} alexandridis launches; hardware "
+        f"{result['hardware']!r}; last metrics {json.dumps(history[-1])}")
+    log(f"[kernel] alexandridis on the curve's inputs ({len(recorded)} launches recorded, the "
+        f"first and last of each iteration): max_abs_err {err} (tolerance 0, grid and age)")
+    if launches != 2 * CURVE_STEPS:
+        fail(f"expected {2 * CURVE_STEPS} alexandridis launches on the curve, got {launches}")
+    if len(recorded) != len(keep) or err != 0:
+        fail("alexandridis disagrees with its plain version on the curve's inputs")
+    if not result["hardware"].startswith(name):
+        fail(f"the curve's JSON names {result['hardware']!r}, not the card {name!r}")
+    if not all(math.isfinite(v) for h in history for v in h.values()):
+        fail("the curve's metrics are not finite")
+    if not blob.exists() or not (out / "ppo_curve_smoke.json").exists():
+        fail("the curve wrote no params blob or no JSON")
+
+    recipe, recipe_blob = {}, out / "recipe.pkl"
+    for label, extra in (("modf", []), ("modf --pallas-ca", ["--pallas-ca"])):
+        alexandridis_fused_step.launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            r = train_curve.main(RECIPE_ARGV + extra + ["--tag", "recipe", "--out", str(out),
+                                                        "--save-params", str(recipe_blob)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        fell_back = any("falling back to the XLA CA path" in str(w.message) for w in caught)
+        n_k2 = alexandridis_fused_step.launches
+        log(f"[curve] [{card}] round 5's recipe ({label}), cut: {dt:.1f}s wall, samples/s "
+            f"{[h['SPS'] for h in r['history']]}, {n_k2} alexandridis launches, fallback "
+            f"warning {fell_back}; last metrics {json.dumps(r['history'][-1])}")
+        if n_k2 != 0 or fell_back != bool(extra):
+            fail(f"round 5's recipe ({label}) launched the fused kernel or warned wrongly")
+        if not all(math.isfinite(v) for h in r["history"] for v in h.values()):
+            fail(f"round 5's recipe ({label}) gave metrics that are not finite")
+        recipe[label] = {"seconds": dt, "sps": [h["SPS"] for h in r["history"]],
+                         "alexandridis_launches": n_k2, "fallback_warning": fell_back}
+    log(f"[curve] phase took {time.perf_counter() - t_phase:.1f}s")
+    return ({"card": card, "argv": CURVE_ARGV, "seconds": wall,
+             "sps": [h["SPS"] for h in history], "hardware": result["hardware"],
+             "alexandridis_launches": launches, "alexandridis_recorded_launches": len(recorded),
+             "alexandridis_max_abs_err": err, "recipe": recipe}, blob, recipe_blob)
+
+
+def policy_phase(card, blob, modf_blob):
+    """``[policy]`` (module docstring, phase 15)."""
+    import contextlib
+    import io
+
+    from gymca_torch import eval_policy
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+
+    t_phase = time.perf_counter()
+    real = eval_policy.episode_returns
+    seconds = []
+
+    def without_sync(env, act_fn, keys, num_envs):
+        """The episode loop under sync_debug_mode=error, timed to a
+        synchronize; the summary's read-back comes after."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            out = real(env, act_fn, keys, num_envs)
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return out
+
+    def evaluate(argv):
+        alexandridis_fused_step.launches = 0
+        seconds.clear()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            results = eval_policy.main(argv)
+        for line in printed.getvalue().splitlines():
+            log(f"[policy] {line}")
+        return results, alexandridis_fused_step.launches, list(seconds)
+
+    eval_policy.episode_returns = without_sync
+    try:
+        keep = {p * POLICY_STEPS + i for p in range(len(POLICIES))
+                for i in (0, POLICY_STEPS - 1)}
+        with ki.alexandridis_recorder(keep) as recorded:
+            results, launches, secs = evaluate(["--params", str(blob), "--envs",
+                                                str(POLICY_ENVS), "--steps", str(POLICY_STEPS),
+                                                "--probes"])
+        modf, modf_launches, modf_secs = evaluate(["--params", str(modf_blob), "--envs",
+                                                   str(POLICY_ENVS), "--steps",
+                                                   str(POLICY_MODF_STEPS)])
+    finally:
+        eval_policy.episode_returns = real
+    err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in recorded)
+    rates = {r["policy"]: POLICY_STEPS / s for r, s in zip(results, secs)}
+    log(f"[policy] [{card}] eval_policy on the curve's blob, {POLICY_ENVS} envs, "
+        f"{POLICY_STEPS} steps per policy under sync_debug_mode=error: steps/s {rates}; "
+        f"{launches} alexandridis "
+        f"launches; the modf blob {POLICY_MODF_STEPS} steps: {POLICY_MODF_STEPS / modf_secs[0]} "
+        f"steps/s, {modf_launches} alexandridis launches")
+    log(f"[kernel] alexandridis on the policy evaluation's inputs ({len(recorded)} launches "
+        f"recorded, each policy's first and last): max_abs_err {err} (tolerance 0, grid and "
+        f"age)")
+    if [r["policy"] for r in results] != list(POLICIES) or len(modf) != 1:
+        fail("eval_policy did not report every policy")
+    if launches != len(POLICIES) * POLICY_STEPS or modf_launches != 0:
+        fail(f"expected {len(POLICIES) * POLICY_STEPS} alexandridis launches from the policy "
+             f"evaluation and none from the modf blob's, got {launches} and {modf_launches}")
+    if len(recorded) != len(keep) or err != 0:
+        fail("alexandridis disagrees with its plain version on the policy evaluation's inputs")
+    if not all(math.isfinite(r[k]) for r in results + modf
+               for k in ("mean_return", "min", "max")):
+        fail("the policy evaluation's returns are not finite")
+    log(f"[policy] phase took {time.perf_counter() - t_phase:.1f}s")
+    return {"card": card, "envs": POLICY_ENVS, "steps": POLICY_STEPS, "steps_per_s": rates,
+            "modf_steps_per_s": POLICY_MODF_STEPS / modf_secs[0],
+            "alexandridis_launches": launches, "modf_alexandridis_launches": modf_launches,
+            "alexandridis_recorded_launches": len(recorded), "alexandridis_max_abs_err": err,
+            "results": results + modf}
+
+
 # --- main ----------------------------------------------------------------------------
 
 
@@ -1697,7 +2068,16 @@ def main() -> int:
     evaluation = eval_phase(card, trained_state)
     adv_max_err = max(adv_max_err, evaluation["alexandridis_max_abs_err"])
 
-    # 12-13. result lines
+    # 12-15. slice 8: pinecones, the legacy spec, the curve and the policy evaluation
+    pinecones = pinecone_phase(card, gen)
+    legacy = legacy_phase()
+    with tempfile.TemporaryDirectory() as out:
+        curve, blob, modf_blob = curve_phase(card, Path(out))
+        policy = policy_phase(card, blob, modf_blob)
+    adv_max_err = max(adv_max_err, curve["alexandridis_max_abs_err"],
+                      policy["alexandridis_max_abs_err"])
+
+    # 16-17. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -1718,7 +2098,14 @@ def main() -> int:
         "launches": adv_launches,
         "launches_by_path": {"advanced": adv_launches,
                              "train": train["alexandridis_launches"],
-                             "eval": evaluation["alexandridis_launches"]},
+                             "eval": evaluation["alexandridis_launches"],
+                             "curve": curve["alexandridis_launches"],
+                             "policy": policy["alexandridis_launches"]},
+        "max_abs_err_by_path": {"advanced": adv_rec_err,
+                                "train": train["alexandridis_max_abs_err"],
+                                "eval": evaluation["alexandridis_max_abs_err"],
+                                "curve": curve["alexandridis_max_abs_err"],
+                                "policy": policy["alexandridis_max_abs_err"]},
         "max_abs_err": adv_max_err,
         "ms": adv_kernel_ms,
         "plain_ms": adv_plain_ms,
@@ -1737,6 +2124,10 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"helicopter": heli}))
     log(json.dumps({"eval": evaluation}))
+    log(json.dumps({"pinecones": pinecones}))
+    log(json.dumps({"legacy": legacy}))
+    log(json.dumps({"curve": curve}))
+    log(json.dumps({"policy": policy}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -55,7 +55,8 @@ from gymca_torch.agents.networks import Actor, Critic, Network, param_dict
 from gymca_torch.config import resolve_device
 
 __all__ = ["AgentState", "Storage", "EpisodeStatistics", "PPOTrainer", "gae",
-           "value_and_grad", "run_rollout_loop", "load_actor"]
+           "value_and_grad", "run_rollout_loop", "load_actor", "fire_centroid",
+           "policy_features", "greedy_fire_action"]
 
 RECENT = 10  # ring-buffer length (reference jax_ppo.py:488)
 
@@ -145,6 +146,51 @@ class EpisodeStatistics(_Replace):
             recent_day_steps=zi(RECENT),
             recent_night_steps=zi(RECENT),
         )
+
+
+def fire_centroid(tg: torch.Tensor, fire: int = 2):
+    """Fire cell count and the fire centroid (row, col) of each env's true
+    grid; the centroid of a fire-free env is (0, 0)."""
+    on_fire = (tg == fire).to(torch.float32)
+    h, w = tg.shape[-2], tg.shape[-1]
+    tot = on_fire.sum((-2, -1))
+    denom = torch.clamp(tot, min=1.0)
+    rows = torch.arange(h, dtype=torch.float32, device=tg.device)[None, :, None]
+    cols = torch.arange(w, dtype=torch.float32, device=tg.device)[None, None, :]
+    return tot, (on_fire * rows).sum((-2, -1)) / denom, (on_fire * cols).sum((-2, -1)) / denom
+
+
+def policy_features(context, nrows: int, ncols: int, position: bool, centroid: bool,
+                    fire: int = 2):
+    """Auxiliary policy/value input features, already normalized, (N, F)
+    float32 (None with neither flag): ``position`` — the agent's (row/H,
+    col/W); ``centroid`` — the agent->fire-centroid offset and a
+    fire-present flag, from the TRUE grid."""
+    pos = context["position"].to(torch.float32)
+    feats = []
+    if position:
+        feats.append(torch.stack([_over(pos[:, 0], nrows), _over(pos[:, 1], ncols)], dim=-1))
+    if centroid:
+        tg = context["per_env_context"]["true_grid"]
+        h, w = tg.shape[-2], tg.shape[-1]
+        tot, cr, cc = fire_centroid(tg, fire)
+        has_fire = (tot > 0).to(torch.float32)
+        feats.append(torch.stack([_over(has_fire * (cr - pos[:, 0]), h),
+                                  _over(has_fire * (cc - pos[:, 1]), w), has_fire], dim=-1))
+    return torch.cat(feats, dim=-1) if feats else None
+
+
+def greedy_fire_action(context, n_heads: int = 3, fire: int = 2) -> torch.Tensor:
+    """The greedy-fire hand policy, (N, n_heads) int32: step toward the live
+    fire's centroid, always shoot, extension heads 0."""
+    _, cr, cc = fire_centroid(context["per_env_context"]["true_grid"], fire)
+    pos = context["position"].to(torch.float32)
+    dr = torch.sign(cr - pos[:, 0]).to(torch.int32)
+    dc = torch.sign(cc - pos[:, 1]).to(torch.int32)
+    move = (dr + 1) * 3 + (dc + 1)
+    heads = [move, torch.ones_like(move)] + [torch.zeros_like(move)
+                                             for _ in range(n_heads - 2)]
+    return torch.stack(heads, dim=1).to(torch.int32)
 
 
 def _ring_owners(mask, recent_idx):
@@ -269,37 +315,13 @@ class PPOTrainer:
     # ----------------------------------------------------------- policy fns
 
     def _policy_features(self, context):
-        """Auxiliary policy/value input features, already normalized:
-        ``position_features`` — agent (row/H, col/W); ``centroid_features``
-        — agent->fire-centroid offset + a fire-present flag, from the TRUE
-        grid.  Returns (N, F) float32, or None when no feature flag is on."""
+        """Auxiliary policy/value input features (:func:`policy_features`),
+        or None when no feature flag is on."""
         if not self._use_features:
             return None
-        pos = context["position"].to(torch.float32)
-        feats = []
-        if self.position_features:
-            feats.append(torch.stack([_over(pos[:, 0], self.env.nrows),
-                                      _over(pos[:, 1], self.env.ncols)], dim=-1))
-        if self.centroid_features:
-            tg = context["per_env_context"]["true_grid"]
-            h, w = tg.shape[-2], tg.shape[-1]
-            tot, cr, cc = self._fire_centroid(tg)
-            has_fire = (tot > 0).to(torch.float32)
-            feats.append(torch.stack([_over(has_fire * (cr - pos[:, 0]), h),
-                                      _over(has_fire * (cc - pos[:, 1]), w), has_fire],
-                                     dim=-1))
-        return torch.cat(feats, dim=-1)
-
-    def _fire_centroid(self, tg):
-        """Fire cell count and the fire centroid (row, col) per env; the
-        centroid of a fire-free env is (0, 0)."""
-        fire = (tg == self.env._fire).to(torch.float32)
-        h, w = tg.shape[-2], tg.shape[-1]
-        tot = fire.sum((-2, -1))
-        denom = torch.clamp(tot, min=1.0)
-        rows = torch.arange(h, dtype=torch.float32, device=tg.device)[None, :, None]
-        cols = torch.arange(w, dtype=torch.float32, device=tg.device)[None, None, :]
-        return tot, (fire * rows).sum((-2, -1)) / denom, (fire * cols).sum((-2, -1)) / denom
+        return policy_features(context, self.env.nrows, self.env.ncols,
+                               self.position_features, self.centroid_features,
+                               self.env._fire)
 
     def _torso(self, params, grid, feats):
         """CNN hidden, optionally augmented with the pre-computed policy
@@ -425,7 +447,7 @@ class PPOTrainer:
             trees = (tg == self.env._tree).sum((-2, -1))
             phi = phi + _over(tree_c * trees.to(torch.float32), h * w)
         if dist_c != 0.0:
-            tot, cr, cc = self._fire_centroid(tg)
+            tot, cr, cc = fire_centroid(tg, self.env._fire)
             pos = context["position"].to(torch.float32)
             sq = (cr - pos[:, 0]) ** 2 + (cc - pos[:, 1]) ** 2
             # torch's float32 sqrt on the CPU is not correctly rounded; XLA's is
@@ -609,17 +631,9 @@ class PPOTrainer:
     # ------------------------------------------------------------ BC warm-start
 
     def _greedy_demo_action(self, context):
-        """The greedy-fire hand policy as a demonstrator: step toward the
-        live-fire centroid, always shoot, extension heads 0."""
-        tg = context["per_env_context"]["true_grid"]
-        _, cr, cc = self._fire_centroid(tg)
-        pos = context["position"].to(torch.float32)
-        dr = torch.sign(cr - pos[:, 0]).to(torch.int32)
-        dc = torch.sign(cc - pos[:, 1]).to(torch.int32)
-        move = (dr + 1) * 3 + (dc + 1)
-        heads = [move, torch.ones_like(move)] + [
-            torch.zeros_like(move) for _ in range(self.n_action_heads - 2)]
-        return torch.stack(heads, dim=1).to(torch.int32)
+        """The greedy-fire hand policy as a demonstrator
+        (:func:`greedy_fire_action`)."""
+        return greedy_fire_action(context, self.n_action_heads, self.env._fire)
 
     def bc_pretrain(self, num_iterations: int, learning_rate: float = 2.5e-4,
                     log_fn: Optional[Callable[[int, dict], None]] = None):

@@ -30,7 +30,8 @@ The CA runs one of two ways (``use_fused_ca``, the JAX package's
   torch version for CPU tensors), with the JAX package's key chain around it
   and the kernel's own per-cell draws inside;
 * the XLA-path counterpart: ``AlexandridisCA`` over the batch, every draw
-  from the JAX package's key chain, bit for bit.
+  from the JAX package's key chain, bit for bit; with ``enable_pinecones``
+  it also spots pinecones, and the env always takes this path then.
 
 Every step runs on the device with no host synchronisation.  In particular
 ``conditional_reset`` always runs its merge instead of testing
@@ -42,6 +43,7 @@ the result equals the untouched step tuple.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -96,8 +98,9 @@ class AdvancedForestFireBulldozerEnv:
     the XLA-path counterpart on the CPU (what the JAX package runs there);
     ``True`` runs the kernel, or its plain version on the CPU; ``False``
     runs the XLA-path counterpart.  ``True`` with ``ca_repeat_mode="modf"``
-    or with pinecones raises: the kernel covers one CA application per step
-    (the JAX package warns and falls back there).  The kernel has no tile
+    or with pinecones warns and runs the XLA-path counterpart, as the JAX
+    package does: the kernel covers one CA application per step and no
+    pinecone spotting.  The kernel has no tile
     alignment or size gate, so, for example, at 64x64 the port runs fused
     where the JAX package runs its XLA path.
     """
@@ -141,15 +144,20 @@ class AdvancedForestFireBulldozerEnv:
         if ca_repeat_mode not in ("single", "modf"):
             raise ValueError(f"ca_repeat_mode must be 'single' or 'modf', got "
                              f"{ca_repeat_mode!r}")
-        if use_fused_ca and (ca_repeat_mode != "single" or enable_pinecones):
-            raise ValueError(
-                "use_fused_ca=True needs ca_repeat_mode='single' and no pinecones "
-                f"(got ca_repeat_mode={ca_repeat_mode!r}, "
-                f"enable_pinecones={enable_pinecones})")
+        supported = ca_repeat_mode == "single" and not enable_pinecones
         if use_fused_ca is None:
-            use_fused_ca = (dev.type == "cuda" and ca_repeat_mode == "single"
-                            and not enable_pinecones)
-        self.use_fused_ca = bool(use_fused_ca)
+            use_fused_ca = dev.type == "cuda" and supported
+        self.use_fused_ca = bool(use_fused_ca) and supported
+        if use_fused_ca and not self.use_fused_ca:
+            warnings.warn(
+                "use_fused_ca requested but unsupported for this config "
+                f"(nrows={nrows}, ncols={ncols} — the kernel covers one CA "
+                "application a step and no pinecone spotting — "
+                f"ca_repeat_mode={ca_repeat_mode!r}, "
+                f"enable_pinecones={enable_pinecones}); "
+                "falling back to the XLA CA path",
+                stacklevel=2,
+            )
         if obs_dtype not in (torch.uint8, torch.float32):
             raise ValueError(f"obs_dtype must be torch.uint8 or torch.float32, got "
                              f"{obs_dtype}")

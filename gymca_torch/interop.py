@@ -17,11 +17,18 @@ The JAX side hands over its leaves as numpy arrays (keys as
   "critic_params"}``, each a flax tree ``{"params": {...}}``:
   :func:`ppo_params_from_numpy` and :func:`ppo_params_to_numpy`.  Conv
   kernels go HWIO -> OIHW and Dense kernels (in, out) -> (out, in); the
-  torso flattens in NHWC order as flax does, so no row is permuted.
+  torso flattens in NHWC order as flax does, so no row is permuted;
+* the params blob, the pickle that ``scripts/train_curve.py --save-params``
+  writes and ``scripts/eval_policy.py`` reads (params plus the run's
+  config): :func:`load_params_blob` reads one, written by either package,
+  without flax; :func:`save_params_blob` writes one that the JAX script
+  loads.
 """
 
 from __future__ import annotations
 
+import pickle
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -31,7 +38,8 @@ from gymca_torch.config import resolve_device
 from gymca_torch.core.env import EnvState
 
 __all__ = ["env_state_from_numpy", "env_state_to_numpy", "advanced_obs_from_numpy",
-           "advanced_obs_to_numpy", "ppo_params_from_numpy", "ppo_params_to_numpy"]
+           "advanced_obs_to_numpy", "ppo_params_from_numpy", "ppo_params_to_numpy",
+           "load_params_blob", "save_params_blob", "BLOB_CONFIG_KEYS"]
 
 _BF16_KEYS = ("exp_slope", "veg_den_factor")
 
@@ -188,3 +196,64 @@ def ppo_params_to_numpy(params) -> Dict[str, Dict[str, object]]:
             node[leaf] = a
         out[group] = {"params": tree}
     return out
+
+
+# The run config a params blob carries beside ``params``
+# (``scripts/train_curve.py:193-204``).
+BLOB_CONFIG_KEYS = ("size", "num_envs", "seed", "ca_repeat_mode", "position_features",
+                    "centroid_features", "bf16")
+
+# What a blob may reference: numpy's array and dtype reconstructors, plain
+# builtin containers and scalars, and flax's FrozenDict (read as a dict).
+_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numeric", "numpy._core.numeric")
+_NUMPY_NAMES = ("ndarray", "dtype", "_reconstruct", "scalar", "_frombuffer")
+_BUILTIN_NAMES = ("dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
+                  "bool", "str", "bytes", "bytearray", "slice", "range")
+
+
+def _frozen_dict(mapping=()):
+    """Stand-in for ``flax.core.frozen_dict.FrozenDict`` when unpickling: its
+    ``__reduce__`` rebuilds it from a plain dict, which is what the port
+    keeps."""
+    return dict(mapping)
+
+
+class _BlobUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == ("flax.core.frozen_dict", "FrozenDict"):
+            return _frozen_dict
+        if module in _NUMPY_MODULES and name in _NUMPY_NAMES:
+            return super().find_class(module, name)
+        if module == "numpy.dtypes" and name.endswith("DType"):
+            return super().find_class(module, name)
+        if module == "builtins" and name in _BUILTIN_NAMES:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"a params blob may not reference {module}.{name}")
+
+
+def load_params_blob(path, device=None) -> Dict[str, object]:
+    """A params blob (written by ``scripts/train_curve.py --save-params`` or
+    by :func:`save_params_blob`) as a dict: ``params``, the port's params
+    (:func:`ppo_params_from_numpy`, on ``device``, the card unless the caller
+    names another), and the run config of ``BLOB_CONFIG_KEYS``.  flax is not
+    imported: its FrozenDict reads as a dict, and any class outside numpy's
+    arrays and builtin containers is refused."""
+    with open(path, "rb") as f:
+        blob = _BlobUnpickler(f).load()
+    return {**blob, "params": ppo_params_from_numpy(blob["params"], device)}
+
+
+def save_params_blob(path, params, **config) -> Path:
+    """Write the port's ``params`` as a params blob at ``path``: flax's
+    layout in plain dicts of numpy arrays (:func:`ppo_params_to_numpy`) and
+    exactly the run config of ``BLOB_CONFIG_KEYS``, which ``config`` must
+    give.  ``scripts/eval_policy.py`` loads it as it loads its own."""
+    if set(config) != set(BLOB_CONFIG_KEYS):
+        raise ValueError(f"config must hold exactly {BLOB_CONFIG_KEYS}, got {sorted(config)}")
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"params": ppo_params_to_numpy(params),
+                     **{k: config[k] for k in BLOB_CONFIG_KEYS}}, f)
+    return path

@@ -12,15 +12,26 @@ Counterpart of ``gymca_tpu/ops/alexandridis.py`` (the XLA path):
 * ignition from one uniform per cell against ``1 - prod_d max(1 - p_d, 0)``;
 * new fires get ages in ``[fire_age_min, fire_age_max)``; fires burn out at
   age <= 1; burning fires age by one;
-* stochastic wind-index rotation with probability ``p_wind_change``.
+* stochastic wind-index rotation with probability ``p_wind_change``;
+* optional pinecone spotting (``enable_pinecones``, off by default): every
+  fire cell lofts up to ``max_pinecones`` embers along wind-scaled normal
+  flights, and an ember lights the tree it lands on.
 
 Every draw comes from the same ``gymca_torch.rng`` key chain as the JAX
-package, so the update equals it bit for bit.  Pinecone spotting is not
-ported yet: it needs ``jax.random.poisson`` and ``normal`` in the key chain.
+package, so the update equals it bit for bit.  The landings follow XLA's
+CPU scatter: every ember of every cell writes its landing cell, the unlit
+ones with the value already there, and where several land on one cell the
+last in the JAX package's slot-major order wins.  The port picks that entry
+with a max-reduction of entry indices per cell, which is deterministic on
+the card too (``index_put_`` on duplicate indices is not ordered there).
+
+``AlexandridisCA.sequential_prototype`` builds the legacy sequential spec
+(``gymca_torch.ops.alexandridis_legacy``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -43,6 +54,18 @@ __all__ = ["AlexandridisCA", "build_burn_kernel", "burn_kernel_layer_weights",
 VEG_PROBS = (-999.0, -0.1, 0.2, 0.5, 0.8, 1.2)
 DEN_PROBS = (-999.0, -0.2, 0.2, 0.5, 0.8, 1.2)
 SLOPE_COEFF = 0.078  # 'a' in exp(a * slope)
+# Pinecone compass, counter-clockwise from East in array coords (drow, dcol).
+COMPASS = ((1, 0), (1, 1), (0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1), (1, -1))
+# 0.48 as the bfloat16 it becomes beside a bfloat16 operand in JAX.
+_PINECONE_BURN = float(torch.tensor(0.48, dtype=torch.bfloat16))
+
+
+@functools.lru_cache(maxsize=8)
+def _compass(device: torch.device):
+    """The compass's row and column steps, int32 (8,) each, on ``device``:
+    copied there once, so a step makes no host-to-device copy."""
+    table = torch.tensor(COMPASS, dtype=torch.int32).to(device)
+    return table[:, 0].contiguous(), table[:, 1].contiguous()
 
 
 def burn_kernel_layer_weights(burn_kernel_radius: int) -> list:
@@ -118,10 +141,6 @@ class AlexandridisCA(Operator):
         static_p_tree: float = None,
         **kwargs,
     ):
-        if enable_pinecones:
-            raise NotImplementedError(
-                "pinecone spotting is not ported yet: it needs jax.random's "
-                "poisson and normal draws in gymca_torch.rng")
         super().__init__(**kwargs)
         self.grid_size = grid_size
         self.empty, self.tree, self.fire = empty, tree, fire
@@ -140,6 +159,15 @@ class AlexandridisCA(Operator):
         # border * box_2 + (inner - border) * box_1
         self._dousing_border = 0.0007 * self.fire_age_max * 0.50
         self._dousing_inner = 0.006 * self.fire_age_max * 0.50
+
+    @staticmethod
+    def sequential_prototype(empty: int = 0, tree: int = 1, fire: int = 2, rng=None):
+        """The legacy sequential per-cell prototype (NumPy, one env,
+        order-dependent pinecone semantics): a behavioural spec run on the
+        host, not a device path.  ``rng`` is a ``np.random.Generator``."""
+        from gymca_torch.ops.alexandridis_legacy import SequentialAlexandridisCA
+
+        return SequentialAlexandridisCA(empty, tree, fire, rng=rng)
 
     # --- pieces ------------------------------------------------------------
 
@@ -179,6 +207,76 @@ class AlexandridisCA(Operator):
         p_den = den[torch.clamp(density, 1, 5).long()]
         return ((1.0 + p_veg) * (1.0 + p_den)).to(torch.bfloat16)
 
+    def _veg_den_factor(self, per_env) -> torch.Tensor:
+        """The env's factor, computed once from its static terrain, or, for
+        direct operator use, the factor of the context's terrain."""
+        vdf = per_env.get("veg_den_factor")
+        if vdf is None:
+            vdf = self.precompute_veg_den_factor(per_env["vegetation"], per_env["density"])
+        return vdf
+
+    def _pinecone_spread(self, grid, keys, per_env, ft, fire_mask):
+        """Pinecone spotting: every fire cell lofts ``min(Poisson(1),
+        max_pinecones)`` embers; each flies ``normal * thrust`` cells along
+        one of the 8 compass directions and lights a tree where it lands
+        with probability ``0.48 * veg_den_factor`` there.
+
+        Slot-major, as the JAX package: one (H, W) layer of draws per ember
+        slot.  The d-th compass direction takes its thrust from the d-th
+        off-centre cell of ``ft`` in row-major order (the reference's
+        pairing).  ``grid`` and ``fire_mask`` (N, H, W), ``keys`` (N, 2),
+        ``ft`` (N, 3, 3).  Returns the landing rows, columns and lit flags of
+        every entry, each (N, max_pinecones * H * W), slot-major."""
+        n, h, w = grid.shape
+        dev = grid.device
+        rows = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+        cols = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+        comp_r, comp_c = _compass(dev)
+        thrust = torch.stack([ft[:, 1 + dr, 1 + dc] for dr, dc in NEIGHBOR_OFFSETS],
+                             dim=-1).to(TYPE_BOX)  # (N, 8)
+        burn_p = (_PINECONE_BURN * self._veg_den_factor(per_env)).reshape(n, h * w)
+        flat_grid = grid.reshape(n, h * w)
+
+        pair = rng.split(keys)
+        k_count, k_slots = pair[:, 0], pair[:, 1]
+        n_embers = rng.poisson(k_count, 1.0, (h, w), max_count=self.max_pinecones)
+
+        land_r, land_c, lit = [], [], []
+        for slot in range(self.max_pinecones):
+            sub = rng.split(rng.fold_in(k_slots, slot), 3)
+            d = rng.randint(sub[:, 0], (h, w), 0, 8).long()
+            flight = rng.normal(sub[:, 1], (h, w)) * thrust.gather(
+                1, d.reshape(n, -1)).reshape(n, h, w)
+            # compass steps are -1, 0 or 1: each product is exact
+            r = torch.clamp(torch.round(rows + comp_r[d] * flight), 0, h - 1).to(torch.int32)
+            c = torch.clamp(torch.round(cols + comp_c[d] * flight), 0, w - 1).to(torch.int32)
+            in_flight = fire_mask & (slot < n_embers)
+            u = rng.uniform(sub[:, 2], (h, w))
+            at = (r.long() * w + c).reshape(n, -1)
+            lit.append(in_flight & (flat_grid.gather(1, at).reshape(n, h, w) == self.tree)
+                       & (u < burn_p.gather(1, at).reshape(n, h, w)))
+            land_r.append(r)
+            land_c.append(c)
+        return (torch.stack(land_r, 1).reshape(n, -1), torch.stack(land_c, 1).reshape(n, -1),
+                torch.stack(lit, 1).reshape(n, -1))
+
+    def _land_pinecones(self, grid, fire_age, rows, cols, lit, ages):
+        """``grid.at[rows, cols].set(where(lit, fire, grid[rows, cols]))`` and
+        the same for ``fire_age`` with ``ages``, per env, as XLA's CPU
+        scatter orders duplicates: the last entry landing on a cell decides
+        it, lit or not."""
+        n, h, w = grid.shape
+        at = rows.long() * w + cols
+        order = torch.arange(at.shape[1], device=at.device).expand_as(at)
+        last = torch.full((n, h * w), -1, dtype=torch.int64, device=at.device)
+        last = last.scatter_reduce(1, at, order, reduce="amax")
+        pick = last.clamp(min=0)
+        lights = (last >= 0) & lit.gather(1, pick)
+        new_grid = torch.where(lights, self.fire, grid.reshape(n, -1)).to(grid.dtype)
+        new_age = torch.where(lights, ages.gather(1, pick).to(fire_age.dtype),
+                              fire_age.reshape(n, -1))
+        return new_grid.reshape(n, h, w), new_age.reshape(n, h, w)
+
     # --- main update ---------------------------------------------------------
 
     def update(self, grid, action, context, keys=None):
@@ -187,7 +285,7 @@ class AlexandridisCA(Operator):
         wind_matrix = shared["winds"][wind_index]
 
         sub = rng.split(keys, 6)
-        k_burn, k_grow, k_age, k_wchange, k_widx = (sub[:, i] for i in range(5))
+        k_burn, k_grow, k_age, k_wchange, k_widx, k_pine = (sub[:, i] for i in range(6))
 
         tree_mask = grid == self.tree
         fire_mask = grid == self.fire
@@ -197,11 +295,7 @@ class AlexandridisCA(Operator):
         dbox = multi_box_sums(per_env["dousing_count"].to(TYPE_BOX), (1, 2))
         dousing_ret = (self._dousing_border * dbox[2]
                        + (self._dousing_inner - self._dousing_border) * dbox[1])
-        vdf = per_env.get("veg_den_factor")
-        if vdf is None:  # direct operator use
-            vdf = self.precompute_veg_den_factor(per_env["vegetation"],
-                                                 per_env["density"])
-        base = (heat - dousing_ret) * vdf.float()
+        base = (heat - dousing_ret) * self._veg_den_factor(per_env).float()
         exp_slope = per_env.get("exp_slope")
         if exp_slope is None:  # direct operator use
             exp_slope = self.precompute_exp_slope(per_env["slope"])
@@ -223,6 +317,13 @@ class AlexandridisCA(Operator):
 
         new_fire_age = torch.where((new_grid == self.fire) & (grid != self.fire),
                                    new_fire_ages, per_env["fire_age"])
+
+        if self.enable_pinecones:
+            ft = shared["fts"][wind_index]
+            rows, cols, burn = self._pinecone_spread(new_grid, k_pine, per_env, ft, fire_mask)
+            pinecone_ages = rng.randint(rng.fold_in(k_pine, 1), burn.shape[1:], 4, 11)
+            new_grid, new_fire_age = self._land_pinecones(new_grid, new_fire_age, rows, cols,
+                                                          burn, pinecone_ages)
         # Burning fires age.
         new_fire_age = torch.where(fire_mask, new_fire_age - 1, new_fire_age)
 

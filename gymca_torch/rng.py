@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,8 @@ __all__ = [
     "uniform",
     "randint",
     "exponential",
+    "normal",
+    "poisson",
     "xla_log",
     "permutation",
     "choice",
@@ -117,7 +119,12 @@ def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 def uniform(keys: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform in ``[minval, maxval)`` (``random.py::_uniform``)."""
-    bits = random_bits(keys, shape)
+    return _uniform_from_bits(random_bits(keys, shape), minval, maxval)
+
+
+def _uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                       maxval: float = 1.0) -> torch.Tensor:
+    """:func:`uniform`'s values from its 32 random bits per element."""
     float_bits = (bits >> 9) | 0x3F800000  # mantissa bits under exponent 0
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
     # Bounds as float32 values held in Python floats: no host-to-device copy.
@@ -246,6 +253,71 @@ def exponential(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """float32 Exp(1) draws (``random.py::_exponential``): ``-log1p(-u)``
     with ``log1p`` as XLA's CPU backend rounds it."""
     return -_log1p_neg(uniform(keys, shape))
+
+
+# XLA's float32 ErfInv (Giles' single-precision approximation): a degree-8
+# polynomial in w - 2.5 for w = -log1p(-x**2) < 5, else in sqrt(w) - 3,
+# evaluated by Horner steps that LLVM contracts into fused multiply-adds.
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` rounded as XLA's CPU backend rounds
+    ``lax.erf_inv`` on ``x`` in (-1, 1) (and ``±inf`` at ``±1``)."""
+    w = -_log1p_neg(x * x)
+    lt = w < 5.0
+    # float64 sqrt rounded to float32 is the correctly rounded float32 sqrt
+    wp = torch.where(lt, w - 2.5, w.double().sqrt().float() - 3.0)
+    lt_c = [float(np.float32(c)) for c in _ERFINV_W_LT5]
+    ge_c = [float(np.float32(c)) for c in _ERFINV_W_GE5]
+    p = torch.where(lt, lt_c[0], ge_c[0])
+    for c_lt, c_ge in zip(lt_c[1:], ge_c[1:]):
+        p = _fma_f32(p.double() * wp.double(), torch.where(lt, c_lt, c_ge))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """:func:`normal`'s values from its 32 random bits per element."""
+    return _SQRT2_F32 * _erf_inv(_uniform_from_bits(bits, _NORMAL_LO, 1.0))
+
+
+def normal(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 standard normal draws (``random.py::_normal_real``):
+    ``sqrt(2) * erf_inv(u)`` for ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
+    return _normal_from_bits(random_bits(keys, shape))
+
+
+def poisson(keys: torch.Tensor, lam: float, shape: Sequence[int] = (),
+            max_count: Optional[int] = None) -> torch.Tensor:
+    """int32 Poisson(``lam``) draws for ``lam`` < 10 (``random.py::
+    _poisson_knuth``): each round splits the key, draws a float32 uniform
+    field and adds its ``log`` to a running float32 sum; the count is the
+    number of rounds whose partial sum stays above ``-lam``.
+
+    With ``max_count=m`` exactly ``m`` rounds are drawn, which gives
+    ``min(poisson, m)`` bit for bit and never waits for the device.  Without
+    it the loop runs until every cell's sum has fallen to ``-lam``, with a
+    host check of that each round."""
+    if not 0.0 < lam < 10.0:
+        raise ValueError(f"only Knuth's branch (0 < lam < 10) is ported, got {lam}")
+    neg_lam = float(np.float32(-lam))
+    shape = tuple(int(d) for d in shape)
+    log_prod = torch.zeros(keys.shape[:-1] + shape, dtype=torch.float32,
+                           device=keys.device)
+    count = torch.zeros(log_prod.shape, dtype=torch.int32, device=keys.device)
+    rounds = 0
+    while (rounds < max_count) if max_count is not None else bool((log_prod > neg_lam).any()):
+        pair = split(keys)
+        keys = pair[..., 0, :]
+        log_prod = log_prod + xla_log(uniform(pair[..., 1, :], shape))
+        count = count + (log_prod > neg_lam).to(torch.int32)
+        rounds += 1
+    return count
 
 
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:

@@ -79,7 +79,8 @@ def parse_args(argv=None):
     env.add_argument("--maxpool-count", type=int, default=2)
     env.add_argument("--ca-repeat-mode", choices=("single", "modf"), default="single",
                      help="'single' = one CA application per step; 'modf' = classic "
-                          "time-gated CA (not on the fused kernel)")
+                          "time-gated CA (with --pallas-ca it warns and runs the "
+                          "XLA-path counterpart)")
 
     ppo = parser.add_argument_group("PPO")
     ppo.add_argument("--learning-rate", type=float, default=2.5e-4)

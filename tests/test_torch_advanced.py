@@ -347,12 +347,16 @@ def test_fused_flag():
     key = rng.key(0, device="cpu")
     assert TEnv(16, 16, key=key, num_envs=1, device="cpu").use_fused_ca is False
     assert TEnv(64, 64, key=key, num_envs=1, device="cpu", use_fused_ca=True).use_fused_ca
-    with pytest.raises(ValueError, match="modf"):
-        TEnv(16, 128, key=key, num_envs=1, device="cpu", use_fused_ca=True,
-             ca_repeat_mode="modf")
-    with pytest.raises(ValueError, match="pinecones"):
-        TEnv(16, 128, key=key, num_envs=1, device="cpu", use_fused_ca=True,
-             enable_pinecones=True)
+    # the kernel covers one CA application a step and no pinecones: warn and
+    # run the XLA-path counterpart, as gymca_tpu/envs/advanced.py:170-181 does
+    with pytest.warns(UserWarning, match="ca_repeat_mode='modf'.*falling back to the XLA"):
+        env = TEnv(16, 128, key=key, num_envs=1, device="cpu", use_fused_ca=True,
+                   ca_repeat_mode="modf")
+    assert env.use_fused_ca is False
+    with pytest.warns(UserWarning, match="enable_pinecones=True.*falling back to the XLA"):
+        env = TEnv(16, 128, key=key, num_envs=1, device="cpu", use_fused_ca=True,
+                   enable_pinecones=True)
+    assert env.use_fused_ca is False
 
 
 # --- contract tests (tests/test_advanced.py) on the port ----------------------------------

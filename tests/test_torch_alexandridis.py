@@ -263,8 +263,16 @@ class TestRules:
         pytest.fail("a tree surrounded by fire should ignite within 20 tries")
 
     def test_pinecones_wait_for_a_later_slice(self):
-        with pytest.raises(NotImplementedError, match="pinecone"):
-            talex.AlexandridisCA(16, EMPTY, TREE, FIRE, enable_pinecones=True)
+        """Pinecone spotting is ported now (the name is from when it raised):
+        the operator builds and steps one burning env
+        (``tests/test_alexandridis.py::TestPinecones::test_pinecone_mode_runs``;
+        the JAX package parity is in ``tests/test_torch_pinecones.py``)."""
+        ca = talex.AlexandridisCA(16, EMPTY, TREE, FIRE, enable_pinecones=True)
+        per_env, shared = port_contexts(16, 16)
+        per_env["fire_age"] = torch.zeros((1, 16, 16))
+        per_env["fire_age"][0, 8, 8] = 100.0
+        grid, _, _ = run_ca(ca, one_fire(16, 16, TREE), per_env, shared, 1)
+        assert grid.shape == (1, 16, 16)
 
 
 # --- the fused kernel's plain version against K2/K3 in interpret mode --------------------

@@ -594,3 +594,132 @@ def test_eval_loop_on_the_card(cuda, actor, tmp_path):
     if actor != "params":
         np.testing.assert_array_equal(results["cuda"].rewards.cpu().numpy(),
                                       results["cpu"].rewards.numpy())
+
+
+# --- slice 8: pinecones and the policy evaluation ------------------------------------------
+
+
+def burning_block(obs):
+    """``obs`` with a block of trees in the middle of every env set burning,
+    so that embers fly."""
+    rgb, ctx = obs
+    ctx, per_env = dict(ctx), dict(ctx["per_env_context"])
+    tg = per_env["true_grid"].clone()
+    h, w = tg.shape[-2:]
+    sub = tg[:, h // 3:2 * h // 3, w // 3:2 * w // 3]
+    tg[:, h // 3:2 * h // 3, w // 3:2 * w // 3] = torch.where(sub == 1, 2, sub)
+    per_env["true_grid"] = tg
+    ctx["per_env_context"] = per_env
+    return rgb, ctx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,n,steps", [((42, 42), 4, 20), ((17, 23), 3, 20)])
+def test_pinecone_env_on_the_card_matches_the_cpu(cuda, size, n, steps):
+    """The Advanced env with pinecones (its XLA-path counterpart: the fused
+    kernel has none) on the card against the CPU, from one terrain and a
+    burning block, every leaf of every step bit for bit; embers are lit."""
+    envs = {}
+    for device in ("cpu", "cuda"):
+        envs[device] = AdvancedForestFireBulldozerEnv(
+            *size, key=rng.key(5, device="cpu"), num_envs=n, enable_pinecones=True,
+            device=device, terrain=envs["cpu"]._terrain_ctx if envs else None)
+    assert not envs["cuda"].use_fused_ca
+    lit = []
+    real_spread = AlexandridisCA._pinecone_spread
+
+    def spread(self, *args):
+        out = real_spread(self, *args)
+        lit.append(int(out[2].sum()))
+        return out
+
+    AlexandridisCA._pinecone_spread = spread
+    try:
+        state = {}
+        for d, env in envs.items():
+            obs, info = env.reset()
+            state[d] = burning_block(obs) + (info,)
+        r = np.random.default_rng(7)
+        for i in range(steps):
+            a = torch.tensor(np.stack([r.integers(0, 9, n), r.integers(0, 2, n),
+                                       np.zeros(n, int)], -1).astype(np.int32))
+            out = {}
+            for d, env in envs.items():
+                rgb, ctx, info = state[d]
+                ad = a.to(d)
+                out[d] = env.conditional_reset(env.stateless_step(ad, (rgb, ctx), info), ad)
+                state[d] = out[d][0] + (out[d][4],)
+            (c_rgb, c_ctx), (g_rgb, g_ctx) = out["cpu"][0], out["cuda"][0]
+            assert torch.equal(g_rgb.cpu(), c_rgb), i
+            assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1]), i
+            for k, v in c_ctx["per_env_context"].items():
+                assert torch.equal(g_ctx["per_env_context"][k].cpu(), v), (i, k)
+            for k in ("position", "time"):
+                assert torch.equal(g_ctx[k].cpu(), c_ctx[k]), (i, k)
+    finally:
+        AlexandridisCA._pinecone_spread = real_spread
+    assert sum(lit) > 0
+
+
+@pytest.mark.gpu
+def test_clamped_poisson_and_the_pinecone_step_have_no_host_sync(cuda):
+    keys = rng.split(rng.key(1), 8)
+    n_env = 4
+    env = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(2), num_envs=n_env,
+                                         enable_pinecones=True)
+    obs, info = env.reset()
+    obs = burning_block(obs)
+    a = torch.tensor([[4, 1, 0]] * n_env, dtype=torch.int32, device=cuda)
+    env.conditional_reset(env.stateless_step(a, obs, info), a)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = rng.poisson(keys, 1.0, (64, 64), max_count=5)
+        for _ in range(5):
+            obs, _, _, _, info = env.conditional_reset(env.stateless_step(a, obs, info), a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert counts.dtype == torch.int32 and int(counts.max()) == 5
+    assert torch.equal(counts.cpu(), rng.poisson(keys.cpu(), 1.0, (64, 64), max_count=5))
+
+
+@pytest.mark.gpu
+def test_eval_policy_loop_on_the_card(cuda):
+    """``gymca_torch.eval_policy``'s episode loop at 4 envs x 64² on the
+    fused env: one Alexandridis launch a step and no host sync for the
+    trained policy and each probe; the probes' returns equal the same loop
+    on the CPU with the kernel's plain version."""
+    from gymca_torch import eval_policy
+    from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs
+    from gymca_torch.agents.ppo import PPOTrainer
+
+    n, size, steps = 4, 64, 16
+    card_env = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(0), num_envs=n)
+    cpu_env = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(0, device="cpu"),
+                                             num_envs=n, use_fused_ca=True, device="cpu")
+    assert card_env.use_fused_ca
+    args = Args(env=EnvArgs(num_envs=n, size=size),
+                exp=ExperimentArgs(position_features=True, centroid_features=True))
+    params = PPOTrainer(cpu_env, args, device="cpu").agent_state.params
+    blob = {"params": {g: {k: t.to(cuda) for k, t in p.items()} for g, p in params.items()},
+            "bf16": False, "position_features": True, "centroid_features": True}
+    policies = [("trained-greedy", (lambda act: lambda obs, k: act(obs))(
+        eval_policy.greedy_policy_fn(blob, card_env)))]
+    policies += list(eval_policy.probe_policies(n, cuda))
+    keys = rng.split(rng.key(17), steps)
+    eval_policy.episode_returns(card_env, policies[0][1], keys[:1], n)  # warm: build, cuDNN
+    cpu_probes = dict(eval_policy.probe_policies(n, "cpu"))
+    for name, fn in policies:
+        torch.cuda.synchronize()
+        before = ak.alexandridis_fused_step.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ret, done = eval_policy.episode_returns(card_env, fn, keys, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ak.alexandridis_fused_step.launches == before + steps, name
+        assert torch.isfinite(ret).all() and ret.device.type == "cuda"
+        if name in cpu_probes:
+            c_ret, c_done = eval_policy.episode_returns(cpu_env, cpu_probes[name], keys.cpu(),
+                                                        n)
+            assert torch.equal(ret.cpu(), c_ret) and torch.equal(done.cpu(), c_done), name

@@ -27,6 +27,9 @@ AGENTS = ("args", "networks", "optim", "ppo", "checkpoint")
 # The public surface, Helicopter and the utilities (ROADMAP §1 items 5-6).
 SURFACE = ("ops/drossel", "envs/helicopter", "registration", "version", "compat",
            "utils/__init__", "utils/neighbors", "utils/render", "utils/metrics")
+# The legacy sequential spec and the curve and policy-evaluation entry points
+# (ROADMAP §1 items 8 and 10).
+SLICE_8 = ("ops/alexandridis_legacy", "train_curve", "eval_policy")
 
 
 def imported_modules(path: Path):
@@ -55,7 +58,7 @@ def test_port_sources_exist():
     assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
-    for mod in SURFACE:
+    for mod in SURFACE + SLICE_8:
         assert f"gymca_torch/{mod}.py" in names
 
 
@@ -86,6 +89,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     *(f"gymca_torch.probes.{p}" for p in PROBES),
     "gymca_torch.agents", *(f"gymca_torch.agents.{m}" for m in AGENTS), "gymca_torch.run",
     *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in SURFACE),
+    *("gymca_torch." + m.replace("/", ".") for m in SLICE_8),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
