@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten paths, seven of them carried by kernels written by hand in CUDA:
+Eleven paths, eight of them carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -24,6 +24,11 @@ Ten paths, seven of them carried by kernels written by hand in CUDA:
   ``python3 -m gymca_torch.train_curve`` and ``python3 -m
   gymca_torch.eval_policy`` (their ``main``), carried by the Alexandridis
   kernel in ``single`` mode.
+* slice 9: ``gymca_torch.parallel`` on a world of one rank on NCCL:
+  ``DataParallelPPO`` at ``[train]``'s cell, carried by the Alexandridis
+  kernel, with one NCCL all-reduce a minibatch; the spatial steps (plain
+  torch ops, as the JAX package's are plain XLA); ``bench_scaling`` at d = 1,
+  carried by K1.
 
 Phases, each fatal on failure:
 
@@ -166,12 +171,39 @@ Phases, each fatal on failure:
     kernel held against its plain version at each policy's first and last
     launch (tolerance 0), steps/s per policy; then the modf blob at 50 steps
     with no launch;
-16. one JSON line describing every kernel, one per path (the Alexandridis
-    kernel's with its launches and its error on each path), then
-    ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
-    ``{"pinecones": ...}``, ``{"legacy": ...}``, ``{"curve": ...}`` and
-    ``{"policy": ...}``;
-17. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+16. slice 9, ``[parallel]``, after every other phase, so that none of them
+    sees a process group, its parts run in the order (a), (c), (d), (b):
+    (a) ``initialize_distributed`` brings up a world
+    of one rank on NCCL (a free local port, ``cuda:0``), which must report
+    ``nccl``, destroyed at the phase's end; (b) ``DataParallelPPO`` at
+    ``[train]``'s cell (``scripts/run``'s defaults), ``train(2)``: 256
+    Alexandridis launches, the kernel's inputs at each iteration's first and
+    last launch held against its plain version (tolerance 0), 16 gradient
+    all-reduces an iteration and one of the metrics, finite metrics, params
+    moved, samples/s beside ``[train]``'s; then, from the starting weights
+    and the same key with TF32 off and cuDNN's deterministic algorithms,
+    ``train_iteration`` of DP (its update traced: NCCL's kernels must show
+    on the device), ``PPOTrainer``, DP and ``PPOTrainer``, each within rtol
+    1e-4, atol 1e-5 of the first trainer's (bit for bit reported), the last
+    three timed back to back; (c) under
+    ``set_sync_debug_mode("error")``: ``bulldozer_step_spatial`` on one
+    16384² int8 grid for 20 steps and ``bulldozer_step_batched_spatial`` on
+    a (1, 1) mesh at 4096 x 256² for 20 steps, each leaf for leaf equal to
+    ``BulldozerCore.step``; ``advanced_step_spatial`` on one 4096² grid for
+    10 steps (cells in {0, 1, 2}, rewards in [-1, 0], fire burning; ms a
+    step); ``advanced_step_batched_spatial`` at 64 x 256² on a (1, 1) mesh
+    equal to 4 of its envs stepped alone, for 3 steps; the card against the
+    CPU (a gloo mesh beside NCCL's) for ``advanced_step_spatial`` at 256² for
+    5 steps; (d) ``bench_scaling`` at d = 1, 4096 x 256², 200 steps a run,
+    the best of 3 after 2 untimed: 1,000 K1 launches, env-steps/s beside
+    ``[time]``'s best;
+17. one JSON line describing every kernel, one per path (the Alexandridis
+    kernel's and K1's with their launches on each path, the Alexandridis
+    kernel's with its error on each), then ``{"train": ...}``,
+    ``{"helicopter": ...}``, ``{"eval": ...}``, ``{"pinecones": ...}``,
+    ``{"legacy": ...}``, ``{"curve": ...}``, ``{"policy": ...}`` and
+    ``{"parallel": ...}``;
+18. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -260,6 +292,19 @@ RECIPE_ARGV = ["--size", "256", "--num-envs", "8", "--iters", "2", "--bf16",
                "--kickstart-decay", "2", "--sm-schedule", "2:0.5,1:0.5"]
 POLICY_ENVS, POLICY_STEPS, POLICY_MODF_STEPS = 16, 100, 50
 POLICIES = ("trained-greedy", "idle", "random", "greedy-fire")
+# Slice 9: parallel/ on a world of one rank (NCCL holds one rank per card).
+# (b) the [train] cell through DataParallelPPO, 2 iterations; (c) the spatial
+# steps: the windy cell's 268 M cells (4096 x 256²) as one 16384² grid and as
+# 4096 envs on a (1, 1) mesh, 20 steps each; the Advanced physics on one
+# 4096² grid for 10 steps, at the Advanced cell's 64 x 256² on a (1, 1) mesh
+# against 4 envs stepped alone (3 steps), card against CPU at 256² (5 steps);
+# (d) bench_scaling at its defaults (scripts/bench_scaling.py:107-109, 4096 x
+# 256²), runs of 200 of its 1000 steps.
+PAR_ITERS = 2
+SPATIAL_BIG, SPATIAL_BIG_STEPS, SPATIAL_BATCH_STEPS = 16384, 20, 20
+ADV_SPATIAL_SIZE, ADV_SPATIAL_STEPS = 4096, 10
+ADV_BATCH_CHECK_ENVS, ADV_BATCH_CHECK_STEPS, ADV_CPU_STEPS = 4, 3, 5
+SCALING_STEPS = 200
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
@@ -1192,14 +1237,47 @@ def train_phase(card):
 # --- slice 7: the Helicopter and the evaluation mode ------------------------------------
 
 
-def state_mismatches(a, b, where):
-    """Names of the leaves of two Helicopter states (and outputs) that differ."""
-    pairs = {"grid": (a[0].grid, b[0].grid), "key": (a[0].key, b[0].key),
-             "done": (a[0].done, b[0].done), "steps": (a[0].steps_elapsed, b[0].steps_elapsed),
-             "reward_accumulated": (a[0].reward_accumulated, b[0].reward_accumulated),
-             "reward": (a[1].reward, b[1].reward), "hit": (a[1].info["hit"], b[1].info["hit"]),
-             **{k: (a[0].context[k], b[0].context[k]) for k in a[0].context}}
-    return [f"{where} {k}" for k, (x, y) in pairs.items() if not torch.equal(x.cpu(), y.cpu())]
+def named_leaves(tree, prefix=""):
+    """``{path: tensor}`` of a nest of dicts, tuples and dataclasses."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(tree):
+        items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(named_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def leaf_mismatches(a, b, where):
+    """The paths of the tensor leaves of two like nests that differ (tensors
+    compared on the host)."""
+    la, lb = named_leaves(a), named_leaves(b)
+    if sorted(la) != sorted(lb):
+        return [f"{where} leaves {sorted(set(la) ^ set(lb))}"]
+    return [f"{where} {k}" for k, x in la.items() if isinstance(x, torch.Tensor)
+            and not torch.equal(x.cpu(), lb[k].cpu())]
+
+
+def without_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``, timed to a
+    synchronize: ``(its result, seconds)``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def helicopter_phase(card, gen):
@@ -1275,7 +1353,7 @@ def helicopter_phase(card, gen):
         ca_steps += int(a[0].context["freeze"][0] == 0)
         a = autoreset_step(core, a[0], act)
         b = autoreset_step(cpu, b[0], act.cpu())
-        mismatches += state_mismatches(a, b, f"step {t}")
+        mismatches += leaf_mismatches(a, b, f"step {t}")
     log(f"[helicopter] card against CPU, {HELI_PARITY_ENVS} envs at {h}x{w}, "
         f"{HELI_PARITY_STEPS} autoreset_steps ({ca_steps} CA applications per env): "
         f"{len(mismatches)} leaf mismatches {mismatches[:5]}")
@@ -1635,19 +1713,11 @@ def policy_phase(card, blob, modf_blob):
     real = eval_policy.episode_returns
     seconds = []
 
-    def without_sync(env, act_fn, keys, num_envs):
+    def timed_loop(env, act_fn, keys, num_envs):
         """The episode loop under sync_debug_mode=error, timed to a
         synchronize; the summary's read-back comes after."""
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            t0 = time.perf_counter()
-            out = real(env, act_fn, keys, num_envs)
-            torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        out, dt = without_sync(lambda: real(env, act_fn, keys, num_envs))
+        seconds.append(dt)
         return out
 
     def evaluate(argv):
@@ -1659,7 +1729,7 @@ def policy_phase(card, blob, modf_blob):
             log(f"[policy] {line}")
         return results, alexandridis_fused_step.launches, list(seconds)
 
-    eval_policy.episode_returns = without_sync
+    eval_policy.episode_returns = timed_loop
     try:
         keep = {p * POLICY_STEPS + i for p in range(len(POLICIES))
                 for i in (0, POLICY_STEPS - 1)}
@@ -1698,6 +1768,354 @@ def policy_phase(card, blob, modf_blob):
             "alexandridis_launches": launches, "modf_alexandridis_launches": modf_launches,
             "alexandridis_recorded_launches": len(recorded), "alexandridis_max_abs_err": err,
             "results": results + modf}
+
+
+# --- slice 9: parallel/ on torch.distributed ---------------------------------------------
+
+
+def nccl_kernels(prof):
+    """NCCL's device kernels in a trace (a sum over one rank is its
+    ``oneRankReduce``), apart from its ``nccl:`` ranges."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("nccl:")
+            and ("nccl" in e.name.lower() or "onerank" in e.name.lower())]
+
+
+def parallel_ppo(card, train_sps):
+    """(b) of ``[parallel]``: ``DataParallelPPO`` at ``[train]``'s cell."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gymca_torch import rng
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+    from gymca_torch.parallel.mesh import make_mesh
+    from gymca_torch.parallel.sharded import DataParallelPPO
+    from gymca_torch.run import args_to_structured_args, build_env, parse_args
+
+    args = args_to_structured_args(parse_args(TRAIN_ARGV))
+    env = build_env(args)
+    if not env.use_fused_ca:
+        fail("the data-parallel trainer's env does not take the fused kernel on the card")
+    dp = DataParallelPPO(env, args, make_mesh(1), key=rng.key(args.exp.seed))
+    steps = args.exp.num_ppo_steps
+    n_mb = args.ppo.update_epochs * args.ppo.num_minibatches
+    start = dp.trainer.agent_state
+    counters = (alexandridis_fused_step, windy_fused_step)
+    for c in counters:
+        c.launches = 0
+    keep = {0, steps - 1, steps, PAR_ITERS * steps - 1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ki.alexandridis_recorder(keep) as recorded:
+        state, history = dp.train(PAR_ITERS)
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    k2, k1 = (c.launches for c in counters)
+    grad_reduces, metric_reduces = dp.trainer.grad_all_reduces, dp.metric_all_reduces
+    err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in recorded)
+    log(f"[parallel] (b) DataParallelPPO on a world of one rank, scripts/run's defaults: "
+        f"{PAR_ITERS} iterations in {dp_s:.2f}s, {k2} alexandridis launches ({k1} windy), "
+        f"{grad_reduces} gradient all-reduces and {metric_reduces} metric all-reduces; SPS " + ", ".join(str(h["SPS"]) for h in history)
+        + f" ([train] (a): {train_sps}); last metrics " + json.dumps(history[-1]))
+    log(f"[kernel] alexandridis on the data-parallel trainer's inputs ({len(recorded)} "
+        f"launches recorded, at steps {sorted(keep)}): max_abs_err {err} (tolerance 0, grid "
+        f"and age)")
+    if k2 != PAR_ITERS * steps:
+        fail(f"expected {PAR_ITERS * steps} alexandridis launches in DataParallelPPO.train, "
+             f"got {k2}")
+    if grad_reduces != PAR_ITERS * n_mb or metric_reduces != PAR_ITERS:
+        fail(f"expected {n_mb} gradient all-reduces and one metric all-reduce an iteration, "
+             f"got {grad_reduces} and {metric_reduces}")
+    if len(recorded) != len(keep) or err != 0:
+        fail("alexandridis disagrees with its plain version on the data-parallel inputs")
+    if not all(finite(h) for h in history):
+        fail("the data-parallel trainer's metrics are not finite")
+    if params_equal(start.params, state.params, tuple(start.params)):
+        fail("DataParallelPPO.train left the params where they started")
+
+    # From the starting weights and the same key, TF32 off and cuDNN's
+    # deterministic algorithms (on an H100 at this size its default ones do
+    # not repeat: the trainer against itself differed by up to 7.8e-4),
+    # iterations in the order DP (its update traced), trainer, DP, trainer,
+    # the last three timed back to back.
+    real_learn = dp.trainer.learn
+    traces = []
+
+    def traced_learn(*a, **kw):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = real_learn(*a, **kw)
+        traces.append(prof)
+        return out
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def dp_iteration(traced):
+        dp.trainer.agent_state = start
+        dp.trainer.learn = traced_learn if traced else real_learn
+        try:
+            return timed(dp.train_iteration, *dp.init_carry())
+        finally:
+            dp.trainer.learn = real_learn
+
+    def trainer_iteration():
+        tr = PPOTrainer(env, args, key=rng.key(args.exp.seed))
+        obs, info = env.reset()
+        n = args.env.num_envs
+        return timed(tr.train_iteration, tr.agent_state, EpisodeStatistics.create(n), obs,
+                     torch.zeros(n, dtype=torch.bool, device="cuda"), info,
+                     rng.split(tr.key, 1)[0])
+
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        runs = [dp_iteration(True), trainer_iteration(), dp_iteration(False),
+                trainer_iteration()]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+    (d_out, _), (s_out, t_s1), (d2_out, d_s), (s2_out, t_s2) = runs
+
+    def leaf_pairs(a, b):
+        return ([(a[0].params[g][k], v) for g in b[0].params for k, v in b[0].params[g].items()],
+                [(a[-1][k].to(torch.float32), v.to(torch.float32)) for k, v in b[-1].items()])
+
+    pairs, m_pairs = leaf_pairs(d_out, s_out)
+    others = [sum(leaf_pairs(o, s_out), []) for o in (d2_out, s2_out)]
+    bad = [i for i, (a, b) in enumerate(pairs + m_pairs + others[0] + others[1])
+           if not torch.allclose(a, b, rtol=1e-4, atol=1e-5)]
+    bits = all(torch.equal(a, b) for a, b in pairs + m_pairs + others[0])
+    gap = max((a - b).abs().max().item() for a, b in pairs)
+    m_gap = max((a - b).abs().max().item() for a, b in m_pairs)
+    dp_gap = max((a - b).abs().max().item() for a, b in others[0])
+    self_gap = max((a - b).abs().max().item() for a, b in others[1])
+    kernels = nccl_kernels(traces[0])
+    nccl_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    log(f"[parallel] (b) [{card}] train_iteration from the starting weights and the same key, "
+        f"TF32 off, cuDNN deterministic: DP against PPOTrainer params max_abs_err {gap}, "
+        f"metrics {m_gap} (rtol 1e-4, atol 1e-5), the second DP iteration {dp_gap}; bit for "
+        f"bit: {bits}; PPOTrainer against itself: {self_gap}")
+    log(f"[parallel] (b) [{card}] back to back, TF32 off: PPOTrainer {t_s1:.3f}s, "
+        f"DataParallelPPO {d_s:.3f}s, PPOTrainer {t_s2:.3f}s an iteration "
+        f"({steps * args.env.num_envs} samples)")
+    log(f"[parallel] (b) [{card}] its traced update ({n_mb} minibatches): {len(kernels)} "
+        f"NCCL kernels {sorted({e.name[-60:] for e in kernels})}, "
+        f"{nccl_us / max(len(kernels), 1)} us of device time each")
+    if bad:
+        fail(f"DataParallelPPO differs from PPOTrainer beyond tolerance at {len(bad)} leaves")
+    if not kernels:
+        fail("the traced data-parallel update shows no NCCL kernel on the device")
+    return {"samples_per_s": history[-1]["SPS"],
+            "sps_per_iteration": [h["SPS"] for h in history],
+            "train_samples_per_s": train_sps, "train_seconds": dp_s,
+            "alexandridis_launches": k2, "alexandridis_max_abs_err": err,
+            "alexandridis_recorded_launches": len(recorded), "grad_all_reduces": grad_reduces,
+            "metric_all_reduces": metric_reduces,
+            "vs_trainer_params_max_abs_err": gap, "vs_trainer_metrics_max_abs_err": m_gap,
+            "vs_trainer_bit_for_bit": bits, "trainer_self_max_abs_err": self_gap,
+            "dp_self_max_abs_err": dp_gap,
+            "iteration_seconds_tf32_off": {"trainer": [t_s1, t_s2], "dp": d_s},
+            "nccl_kernels_in_update": len(kernels),
+            "nccl_us_per_all_reduce": nccl_us / max(len(kernels), 1)}
+
+
+def parallel_spatial(card, gen):
+    """(c) of ``[parallel]``: the spatial steps on a world of 1."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+    from gymca_torch.envs.bulldozer import BulldozerCore
+    from gymca_torch.parallel.mesh import make_2d_mesh, make_mesh
+    from gymca_torch.parallel.spatial_env import (
+        advanced_step_batched_spatial,
+        advanced_step_spatial,
+        bulldozer_step_batched_spatial,
+        bulldozer_step_spatial,
+        shard_state,
+        shard_state_batched,
+    )
+
+    mesh, mesh2 = make_mesh(1), make_2d_mesh(1, 1)
+    out = {}
+
+    def bulldozer_run(label, core, n, steps, step_fn, shard):
+        ref = core.initial_state(rng.split(rng.key(SEED), n))
+        state = shard(ref.clone())
+        actions = ki.draw_actions(gen, steps, n)
+        bad, secs = [], []
+        for i, a in enumerate(actions):
+            (state, s_out), dt = without_sync(lambda: step_fn(core, state, a))
+            secs.append(dt)
+            ref, r_out = core.step(ref, a)
+            bad += leaf_mismatches((state, s_out.reward, s_out.terminated, s_out.info["hit"]),
+                                   (ref, r_out.reward, r_out.terminated, r_out.info["hit"]),
+                                   f"{label} step {i}")
+        fires = int((state.grid == core._fire).sum())
+        ms = 1e3 * sum(secs) / steps
+        log(f"[parallel] (c) [{card}] {label}: {steps} steps under sync_debug_mode=error, "
+            f"{ms} ms a step; every leaf equal to BulldozerCore.step: {not bad} ({fires} fire "
+            f"cells at the end)")
+        if bad:
+            fail(f"{label} differs from BulldozerCore.step: {bad[:10]}")
+        return ms
+
+    out["bulldozer_16384_ms"] = bulldozer_run(
+        f"bulldozer_step_spatial, one {SPATIAL_BIG}² grid", BulldozerCore(SPATIAL_BIG,
+                                                                          SPATIAL_BIG),
+        1, SPATIAL_BIG_STEPS, lambda c, s, a: bulldozer_step_spatial(c, s, a, mesh),
+        lambda s: shard_state(s, mesh))
+    out["bulldozer_batched_ms"] = bulldozer_run(
+        f"bulldozer_step_batched_spatial, (1, 1) mesh, {N_ENVS} x {H}²", BulldozerCore(H, W),
+        N_ENVS, SPATIAL_BATCH_STEPS,
+        lambda c, s, a: bulldozer_step_batched_spatial(c, s, a, mesh2),
+        lambda s: shard_state_batched(s, mesh2))
+
+    def single_env(env):
+        (_, ctx), _ = env.reset()
+        pe = dict(ctx["per_env_context"], position=ctx["position"])
+        return pe, ctx["shared_context"]
+
+    def one(pe, i):
+        return {k: v[i] for k, v in pe.items()}
+
+    def moves(n):
+        return ki.adv_actions(gen, 1, n)[0, :, :2]
+
+    # one 4096² grid, 10 steps
+    env = AdvancedForestFireBulldozerEnv(ADV_SPATIAL_SIZE, ADV_SPATIAL_SIZE, key=rng.key(SEED),
+                                         num_envs=1)
+    pes, shared = single_env(env)
+    pe = one(pes, 0)
+    secs, fires, rewards, cells_ok = [], [], [], []
+    for _ in range(ADV_SPATIAL_STEPS):
+        a = moves(1)[0]
+        (grid, pe, reward, done), dt = without_sync(
+            lambda: advanced_step_spatial(env.ca, pe["true_grid"], pe, shared, a, pe["key"],
+                                          mesh))
+        secs.append(dt)
+        fires.append((grid == 2).sum())
+        rewards.append(reward)
+        cells_ok.append(((grid >= 0) & (grid <= 2)).all())
+    fires = [int(f) for f in fires]
+    rewards = torch.stack(rewards)
+    adv_ms = 1e3 * sum(secs) / ADV_SPATIAL_STEPS
+    log(f"[parallel] (c) [{card}] advanced_step_spatial, one {ADV_SPATIAL_SIZE}² grid: "
+        f"{ADV_SPATIAL_STEPS} steps under sync_debug_mode=error, {adv_ms} ms a step; fire "
+        f"cells {fires}; rewards {rewards.tolist()}")
+    if (not all(bool(c) for c in cells_ok) or not torch.isfinite(rewards).all()
+            or not ((rewards >= -1) & (rewards <= 0)).all() or max(fires) == 0):
+        fail("advanced_step_spatial: cells outside {0, 1, 2}, rewards outside [-1, 0] or "
+             "nothing burned")
+    out["advanced_4096_ms"] = adv_ms
+
+    # 64 x 256² on a (1, 1) mesh against each of 4 envs stepped alone
+    env = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
+                                         num_envs=ADV_ENVS)
+    pes, shared = single_env(env)
+    block = shard_state_batched(pes, mesh2)
+    alone = [one(pes, i) for i in range(ADV_BATCH_CHECK_ENVS)]
+    bad, secs = [], []
+    for step in range(ADV_BATCH_CHECK_STEPS):
+        acts = moves(ADV_ENVS)
+        (grids, block, rewards, dones), dt = without_sync(
+            lambda: advanced_step_batched_spatial(env.ca, block["true_grid"], block, shared,
+                                                  acts, block["key"], mesh2))
+        secs.append(dt)
+        for i, pe in enumerate(alone):
+            (g, alone[i], r, d), _ = without_sync(
+                lambda: advanced_step_spatial(env.ca, pe["true_grid"], pe, shared, acts[i],
+                                              pe["key"], mesh))
+            bad += leaf_mismatches((g, alone[i], r, d),
+                                   (grids[i], one(block, i), rewards[i], dones[i]),
+                                   f"step {step} env {i}")
+    batch_ms = 1e3 * sum(secs) / ADV_BATCH_CHECK_STEPS
+    log(f"[parallel] (c) [{card}] advanced_step_batched_spatial, (1, 1) mesh, {ADV_ENVS} x "
+        f"{ADV_SIZE}², {ADV_BATCH_CHECK_STEPS} steps under sync_debug_mode=error, {batch_ms} "
+        f"ms a step; envs 0-{ADV_BATCH_CHECK_ENVS - 1} equal to advanced_step_spatial "
+        f"alone: {not bad}")
+    if bad:
+        fail(f"advanced_step_batched_spatial differs from the per-env step: {bad[:10]}")
+    out["advanced_batched_64x256_ms"] = batch_ms
+
+    # the card against the CPU at 256², 5 steps
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("data",))
+    env = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED), num_envs=1)
+    pes, shared = single_env(env)
+    card_pe = one(pes, 0)
+    cpu_pe = {k: v.cpu() for k, v in card_pe.items()}
+    cpu_shared = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in shared.items()}
+    bad = []
+    for step in range(ADV_CPU_STEPS):
+        a = moves(1)[0]
+        (card_res, _) = without_sync(
+            lambda: advanced_step_spatial(env.ca, card_pe["true_grid"], card_pe, shared, a,
+                                          card_pe["key"], mesh))
+        cpu_res = advanced_step_spatial(env.ca, cpu_pe["true_grid"], cpu_pe, cpu_shared, a.cpu(),
+                                        cpu_pe["key"], cpu_mesh)
+        bad += leaf_mismatches(card_res, cpu_res, f"step {step}")
+        card_pe, cpu_pe = card_res[1], cpu_res[1]
+    log(f"[parallel] (c) [{card}] advanced_step_spatial at {ADV_SIZE}², {ADV_CPU_STEPS} steps: "
+        f"the card equals the CPU (gloo mesh), every leaf: {not bad}")
+    if bad:
+        fail(f"advanced_step_spatial on the card differs from the CPU: {bad[:10]}")
+    return out
+
+
+def parallel_phase(card, gen, train_sps, time_best):
+    """``[parallel]`` (module docstring, phase 16)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gymca_torch import bench_scaling
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+    from gymca_torch.parallel.mesh import initialize_distributed
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        log(f"[parallel] (a) a world of {dist.get_world_size()} rank on {backend}, "
+            f"tcp://localhost:{port}, cuda:{torch.cuda.current_device()}")
+        if backend != "nccl":
+            fail(f"the card's process group runs {backend}, not NCCL")
+        out = {"card": card, "backend": backend, "world_size": dist.get_world_size()}
+        out.update(parallel_spatial(card, gen))
+        log(f"[parallel] (c) done at {time.perf_counter() - t_phase:.1f}s")
+
+        # (d) bench_scaling at d = 1
+        windy_fused_step.launches = 0
+        a = bench_scaling.parse_args(["--steps", str(SCALING_STEPS)])
+        (rec,) = bench_scaling.run(a)
+        k1 = windy_fused_step.launches
+        runs = bench_scaling.WARMUP + bench_scaling.REPS
+        log(f"[parallel] (d) [{card}] bench_scaling d=1, {a.envs_per_device} x {a.size}², "
+            f"{a.steps} steps, best of {bench_scaling.REPS} after {bench_scaling.WARMUP} "
+            f"untimed: {rec['steps_per_sec']} env-steps/s ([time] best of {TIMING_REPS}: "
+            f"{time_best}), efficiency {rec['efficiency']}; {k1} windy launches")
+        if k1 != runs * SCALING_STEPS or rec["devices"] != 1:
+            fail(f"expected {runs * SCALING_STEPS} windy launches from bench_scaling, got {k1}")
+        out.update(scaling_steps_per_s=rec["steps_per_sec"], scaling_windy_launches=k1,
+                   time_best_steps_per_s=time_best)
+        log(f"[parallel] (d) done at {time.perf_counter() - t_phase:.1f}s")
+        out.update(parallel_ppo(card, train_sps))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase took {out['seconds']:.1f}s")
+    return out
 
 
 # --- main ----------------------------------------------------------------------------
@@ -2077,6 +2495,11 @@ def main() -> int:
     adv_max_err = max(adv_max_err, curve["alexandridis_max_abs_err"],
                       policy["alexandridis_max_abs_err"])
 
+    # 16. slice 9: parallel/ on NCCL, after every other phase: none of them
+    #     sees a process group
+    par = parallel_phase(card, gen, train["samples_per_s"], best[0])
+    adv_max_err = max(adv_max_err, par["alexandridis_max_abs_err"])
+
     # 16-17. result lines
     kernels = [{
         "name": "windy_sparse",
@@ -2084,6 +2507,8 @@ def main() -> int:
         "source": "gymca_torch/csrc/windy_sparse.cu",
         "replaces": "gymca_tpu/ops/pallas_kernels.py:516",
         "launches": launches,
+        "launches_by_path": {"bulldozer": launches,
+                             "scaling": par["scaling_windy_launches"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2100,12 +2525,14 @@ def main() -> int:
                              "train": train["alexandridis_launches"],
                              "eval": evaluation["alexandridis_launches"],
                              "curve": curve["alexandridis_launches"],
-                             "policy": policy["alexandridis_launches"]},
+                             "policy": policy["alexandridis_launches"],
+                             "parallel": par["alexandridis_launches"]},
         "max_abs_err_by_path": {"advanced": adv_rec_err,
                                 "train": train["alexandridis_max_abs_err"],
                                 "eval": evaluation["alexandridis_max_abs_err"],
                                 "curve": curve["alexandridis_max_abs_err"],
-                                "policy": policy["alexandridis_max_abs_err"]},
+                                "policy": policy["alexandridis_max_abs_err"],
+                                "parallel": par["alexandridis_max_abs_err"]},
         "max_abs_err": adv_max_err,
         "ms": adv_kernel_ms,
         "plain_ms": adv_plain_ms,
@@ -2128,6 +2555,7 @@ def main() -> int:
     log(json.dumps({"legacy": legacy}))
     log(json.dumps({"curve": curve}))
     log(json.dumps({"policy": policy}))
+    log(json.dumps({"parallel": par}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -30,7 +30,11 @@ What the port does differently:
 * weights are initialised from a ``torch.Generator`` seeded with the
   networks' keys, not with flax's draws (parity tests carry weights with
   ``gymca_torch.interop.ppo_params_from_numpy``);
-* there is no ``axis_name``: data-parallel PPO waits for ``parallel/``;
+* the JAX trainer's ``axis_name`` is ``process_group``: with a group, each
+  minibatch's grads and five losses are averaged over its ranks by one
+  all-reduce of a flat float32 buffer (:func:`group_mean`) before the
+  optimizer step; ``gymca_torch.parallel.sharded.DataParallelPPO`` builds
+  the trainer so;
 * on the card the convs run at torch's default precision there (cuDNN may
   use TF32) and the dense layers in float32.
 """
@@ -45,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import functional_call
 
@@ -56,7 +61,7 @@ from gymca_torch.config import resolve_device
 
 __all__ = ["AgentState", "Storage", "EpisodeStatistics", "PPOTrainer", "gae",
            "value_and_grad", "run_rollout_loop", "load_actor", "fire_centroid",
-           "policy_features", "greedy_fire_action"]
+           "policy_features", "greedy_fire_action", "group_mean"]
 
 RECENT = 10  # ring-buffer length (reference jax_ppo.py:488)
 
@@ -65,6 +70,28 @@ def _over(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c`` as XLA compiles it under ``jit``: a
     multiply by the float32 reciprocal."""
     return x * float(np.float32(1.0) / np.float32(c))
+
+
+def group_mean(tensors, group):
+    """The mean of each tensor over the ranks of ``group``, rounded as JAX's
+    ``pmean`` rounds it under ``jit``: the sum, then a multiply by the
+    float32 reciprocal of the group size.  One all-reduce of one flat
+    float32 buffer carries every tensor.
+
+    Under NCCL the sum goes as a PREMUL_SUM by 1.0, which adds the same
+    bits: NCCL answers a plain in-place SUM over a group of one rank with
+    no device work at all, and the card's world of one rank must still run
+    NCCL's all-reduce.  Gloo has no premultiplied sum and sums plainly."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    op = (dist._make_nccl_premul_sum(1.0) if dist.get_backend(group) == "nccl"
+          else dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=op, group=group)
+    flat = _over(flat, dist.get_world_size(group))
+    # each back in its tensor's own strides: autograd hands some grads out
+    # in another memory order, and a reduction over them (the global norm)
+    # sums in memory order
+    return [torch.empty_like(t).copy_(p.view(t.shape))
+            for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 class _Replace:
@@ -253,12 +280,17 @@ class PPOTrainer:
     ``total_action_space`` and ``extension_choices``, on ``device`` (the
     card unless the caller names another; without a CUDA device
     ``device=None`` raises).  ``key`` is ``(2,)`` key data (default
-    ``rng.key(args.exp.seed)``).  The JAX trainer's ``axis_name`` (data
-    parallelism) has no counterpart yet.
+    ``rng.key(args.exp.seed)``).  ``process_group``, the JAX trainer's
+    ``axis_name``: the ranks over which each minibatch's grads and losses
+    are averaged (:func:`group_mean`, counted in ``grad_all_reduces``), as
+    ``gymca_torch.parallel.sharded.DataParallelPPO`` trains; None trains
+    alone.
     """
 
-    def __init__(self, env, args: Args, key=None, device=None):
+    def __init__(self, env, args: Args, key=None, device=None, process_group=None):
         self.device = dev = resolve_device(device)
+        self.process_group = process_group
+        self.grad_all_reduces = 0
         if torch.device(env.device).type != dev.type:
             raise ValueError(f"the env runs on {env.device}, the trainer on {dev}")
         self.env = env
@@ -579,8 +611,15 @@ class PPOTrainer:
                     grads = {g: (v if g == "critic_params"
                                  else {k: torch.zeros_like(t) for k, t in v.items()})
                              for g, v in grads.items()}
-                agent_state = self.apply_gradients(agent_state, grads)
                 metrics = (loss,) + aux
+                if self.process_group is not None:
+                    # data-parallel mean over the group (gymca_tpu/agents/ppo.py:614-620)
+                    leaves = optim.tree_leaves(grads)
+                    mean = group_mean(leaves + list(metrics), self.process_group)
+                    self.grad_all_reduces += 1
+                    grads = optim.tree_unflatten(grads, mean[:len(leaves)])
+                    metrics = tuple(mean[len(leaves):])
+                agent_state = self.apply_gradients(agent_state, grads)
         names = ("loss", "policy_loss", "value_loss", "entropy_loss", "approx_kl")
         return agent_state, dict(zip(names, metrics)), key
 

@@ -723,3 +723,111 @@ def test_eval_policy_loop_on_the_card(cuda):
             c_ret, c_done = eval_policy.episode_returns(cpu_env, cpu_probes[name], keys.cpu(),
                                                         n)
             assert torch.equal(ret.cpu(), c_ret) and torch.equal(done.cpu(), c_done), name
+
+
+# --- slice 9: parallel/ on a world of one rank ------------------------------------------
+
+
+@pytest.fixture
+def nccl(cuda):
+    """A world of one rank on NCCL for the test, destroyed after it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gymca_torch.parallel.mesh import initialize_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_data_parallel_ppo_iteration_on_nccl(cuda, nccl):
+    """``DataParallelPPO`` on one rank, 4 envs x 64², 8 steps, 2 epochs of 2
+    minibatches: an iteration launches K2 once an env step, all-reduces once
+    a minibatch over NCCL, and makes no host sync."""
+    from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs, PPOArgs
+    from gymca_torch.parallel.mesh import make_mesh
+    from gymca_torch.parallel.sharded import DataParallelPPO
+
+    n, size, steps = 4, 64, 8
+    env = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(0), num_envs=n)
+    assert env.use_fused_ca
+    args = Args(ppo=PPOArgs(num_minibatches=2, update_epochs=2),
+                env=EnvArgs(num_envs=n, size=size),
+                exp=ExperimentArgs(num_ppo_steps=steps, total_timesteps=n * steps * 4))
+    dp = DataParallelPPO(env, args, make_mesh(1), key=rng.key(5))
+    carry = dp.init_carry()
+    dp.train_iteration(*carry)  # warm: cuDNN, NCCL's communicator
+    torch.cuda.synchronize()
+    before, reduces = ak.alexandridis_fused_step.launches, dp.trainer.grad_all_reduces
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dp.train_iteration(*carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ak.alexandridis_fused_step.launches == before + steps
+    assert dp.trainer.grad_all_reduces == reduces + 4
+    assert all(bool(torch.isfinite(v)) for v in out[-1].values())
+
+
+@pytest.mark.gpu
+def test_bulldozer_spatial_equals_step_at_1024(cuda, nccl):
+    """``bulldozer_step_spatial`` on one 1024² grid for 10 steps equals
+    ``BulldozerCore.step``, every leaf, bit for bit."""
+    from gymca_torch.parallel.mesh import make_mesh
+    from gymca_torch.parallel.spatial_env import bulldozer_step_spatial, shard_state
+
+    core = BulldozerCore(1024, 1024)
+    mesh = make_mesh(1)
+    ref = core.initial_state(rng.split(rng.key(3), 1))
+    state = shard_state(ref.clone(), mesh)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    for a in ki.draw_actions(gen, 10, 1):
+        state, out = bulldozer_step_spatial(core, state, a, mesh)
+        ref, r_out = core.step(ref, a)
+        for x, y in [(state.grid, ref.grid), (state.key, ref.key), (state.done, ref.done),
+                     (state.steps_elapsed, ref.steps_elapsed),
+                     (state.reward_accumulated, ref.reward_accumulated),
+                     (out.reward, r_out.reward), (out.info["hit"], r_out.info["hit"])]:
+            assert torch.equal(x, y)
+        for k in ref.context:
+            assert torch.equal(state.context[k], ref.context[k]), k
+
+
+@pytest.mark.gpu
+def test_advanced_spatial_on_the_card_matches_the_cpu(cuda, nccl):
+    """``advanced_step_spatial`` at 64² for 5 steps: the card (NCCL mesh)
+    equals the CPU (a gloo mesh beside it), every leaf, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from gymca_torch.parallel.mesh import make_mesh
+    from gymca_torch.parallel.spatial_env import advanced_step_spatial
+
+    env = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(0), num_envs=1)
+    (_, ctx), _ = env.reset()
+    pe = {k: v[0] for k, v in ctx["per_env_context"].items()}
+    pe["position"] = ctx["position"][0]
+    shared = ctx["shared_context"]
+    cpu_pe = {k: v.cpu() for k, v in pe.items()}
+    cpu_shared = {k: v.cpu() if torch.is_tensor(v) else v for k, v in shared.items()}
+    mesh = make_mesh(1)
+    cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu",
+                                     mesh_dim_names=("data",))
+    for a in ([4, 1], [1, 1], [7, 0], [3, 1], [4, 0]):
+        a = torch.tensor(a, dtype=torch.int32, device=cuda)
+        g, pe, r, d = advanced_step_spatial(env.ca, pe["true_grid"], pe, shared, a, pe["key"],
+                                            mesh)
+        cg, cpu_pe, cr, cd = advanced_step_spatial(env.ca, cpu_pe["true_grid"], cpu_pe,
+                                                   cpu_shared, a.cpu(), cpu_pe["key"],
+                                                   cpu_mesh)
+        assert torch.equal(g.cpu(), cg) and torch.equal(r.cpu(), cr) and torch.equal(d.cpu(), cd)
+        for k in pe:
+            assert torch.equal(pe[k].cpu(), cpu_pe[k]), k

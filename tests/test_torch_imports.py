@@ -30,6 +30,9 @@ SURFACE = ("ops/drossel", "envs/helicopter", "registration", "version", "compat"
 # The legacy sequential spec and the curve and policy-evaluation entry points
 # (ROADMAP §1 items 8 and 10).
 SLICE_8 = ("ops/alexandridis_legacy", "train_curve", "eval_policy")
+# parallel/ on torch.distributed and the scaling harness (ROADMAP §1 item 9).
+PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/sharded", "parallel/spatial",
+            "parallel/spatial_env", "bench_scaling")
 
 
 def imported_modules(path: Path):
@@ -58,7 +61,7 @@ def test_port_sources_exist():
     assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
-    for mod in SURFACE + SLICE_8:
+    for mod in SURFACE + SLICE_8 + PARALLEL:
         assert f"gymca_torch/{mod}.py" in names
 
 
@@ -90,6 +93,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     "gymca_torch.agents", *(f"gymca_torch.agents.{m}" for m in AGENTS), "gymca_torch.run",
     *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in SURFACE),
     *("gymca_torch." + m.replace("/", ".") for m in SLICE_8),
+    *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in PARALLEL),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
