@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths, eight of them carried by kernels written by hand in CUDA:
+Twelve paths, nine of them carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -28,7 +28,14 @@ Eleven paths, eight of them carried by kernels written by hand in CUDA:
   ``DataParallelPPO`` at ``[train]``'s cell, carried by the Alexandridis
   kernel, with one NCCL all-reduce a minibatch; the spatial steps (plain
   torch ops, as the JAX package's are plain XLA); ``bench_scaling`` at d = 1,
-  carried by K1.
+  carried by K1;
+* slice 10: the step breakdowns, the fused CA's validation, the policy
+  ceiling and the two small CLIs of ``scripts/`` as the port's entry points
+  (``gymca_torch.profile_step`` and ``gymca_torch.probes.exp_split``,
+  carried by K1; ``bench_advanced``, ``profile_advanced``,
+  ``exp_advanced_split``, ``validate_fused_ca`` and ``exp_policy_ceiling``,
+  carried by the Alexandridis kernel; ``update_gallery`` and
+  ``versionate``).
 
 Phases, each fatal on failure:
 
@@ -126,8 +133,10 @@ Phases, each fatal on failure:
    actor bit-identical.  (c) the trained weights on the card and on the CPU
    on the same observations, float32 with TF32 off (rtol 1e-4, atol 1e-5),
    and the difference TF32 makes.  (d) ``train_iteration`` twice from one
-   carry at (b)'s size, float32 defaults and (b)'s flags: whether metrics
-   and params agree bit for bit (reported, not a failure);
+   carry at (a)'s cell (8 envs x 128 steps, 4 minibatches of 256): metrics
+   and params must agree bit for bit (the trainer runs under cuDNN's
+   deterministic algorithms); then at (b)'s size, float32 defaults and (b)'s
+   flags, reported;
 10. slice 7, ``[helicopter]``: ``HelicopterCore(42, 42)``, the registered
     size, at 4096 envs for 200 ``autoreset_step``s with random actions under
     ``set_sync_debug_mode("error")`` (best of 3 for env-steps/s), then 256
@@ -197,13 +206,31 @@ Phases, each fatal on failure:
     5 steps; (d) ``bench_scaling`` at d = 1, 4096 x 256², 200 steps a run,
     the best of 3 after 2 untimed: 1,000 K1 launches, env-steps/s beside
     ``[time]``'s best;
-17. one JSON line describing every kernel, one per path (the Alexandridis
-    kernel's and K1's with their launches on each path, the Alexandridis
-    kernel's with its error on each), then ``{"train": ...}``,
-    ``{"helicopter": ...}``, ``{"eval": ...}``, ``{"pinecones": ...}``,
-    ``{"legacy": ...}``, ``{"curve": ...}``, ``{"policy": ...}`` and
-    ``{"parallel": ...}``;
-18. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+17. slice 10, ``[tools]``, in a process of its own, the entry points of
+    ``scripts/`` that the port had not taken, at their default cells with
+    their steps cut (the cuts are ``TOOLS_*`` below), each with both launch
+    counters zeroed before and read after: ``gymca_torch.profile_step`` and
+    ``gymca_torch.probes.exp_split`` at 4096 x 256², carried by K1 (K1's
+    first launch on each input set recorded: profile_step's 1/7-CA, all-CA,
+    none-fire and pure no-op sets, exp_split's six fractions);
+    ``gymca_torch.bench_advanced`` and ``gymca_torch.profile_advanced`` at 8
+    x 256², ``gymca_torch.exp_advanced_split`` at 64 x 256²,
+    ``gymca_torch.validate_fused_ca`` at 64 x 256² and
+    ``gymca_torch.exp_policy_ceiling`` at 8 x 256², carried by the
+    Alexandridis kernel (its first launch in each, in the env and alone,
+    recorded); every recorded launch held against the kernel's plain
+    version (tolerance 0); fails if a path launched its kernel no time, if
+    exp_advanced_split's CA-stubbed variant launched it at all or left its
+    stub in place, or if validate_fused_ca prints FAIL; then
+    ``gymca_torch.update_gallery`` into a temporary directory where
+    gymnasium and matplotlib are installed (said so where not) and
+    ``gymca_torch.versionate --dry-run``;
+18. one JSON line describing every kernel, one per path (the Alexandridis
+    kernel's and K1's with their launches and their errors on each path),
+    then ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
+    ``{"pinecones": ...}``, ``{"legacy": ...}``, ``{"curve": ...}``,
+    ``{"policy": ...}``, ``{"parallel": ...}`` and ``{"tools": ...}``;
+19. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -214,6 +241,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import subprocess
 import sys
 import tempfile
 import time
@@ -305,20 +333,27 @@ SPATIAL_BIG, SPATIAL_BIG_STEPS, SPATIAL_BATCH_STEPS = 16384, 20, 20
 ADV_SPATIAL_SIZE, ADV_SPATIAL_STEPS = 4096, 10
 ADV_BATCH_CHECK_ENVS, ADV_BATCH_CHECK_STEPS, ADV_CPU_STEPS = 4, 3, 5
 SCALING_STEPS = 200
+# Slice 10: the tools of scripts/ as the port's entry points, at their
+# default cells with their steps cut (each part's trace reads at most 10
+# steps of a step, all of a kernel alone; a trace of 20 Advanced steps took
+# the phase past 4 minutes): profile_step and exp_split at 4096 x 256²
+# (1000 steps each -> 50),
+# bench_advanced and profile_advanced at 8 x 256² (1000 -> 10),
+# exp_advanced_split at 64 x 256² (1000 -> 5), validate_fused_ca at 64 x
+# 256² (500 -> 200: checkpoints t = 100, 200), exp_policy_ceiling at 8 x
+# 256² (6000 -> 50).
+TOOLS_WINDY_STEPS, TOOLS_ADV_STEPS, TOOLS_SPLIT_STEPS = 50, 10, 5
+TOOLS_VALIDATE_STEPS, TOOLS_POLICY_STEPS = 200, 50
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
 
-# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3.  Integer ALU rate:
-# the 67 TFLOP/s float32 peak counts an FMA as two operations on 128 lanes
-# per SM; Hopper's SM has 64 int32 lanes, so 67 / 4 = 16.75 T int32 ops/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 16.75e12
-FP32_OPS_PER_S = 67e12
-# gymca_torch.probes.kernel_inputs, imported by main() once the checkout is
-# on the path: the kernels' inputs, the main paths stepped with random
-# actions, and K1's work count.
+# gymca_torch.probes.kernel_inputs and gymca_torch.probes.timing.profile_steps,
+# imported by main() once the checkout is on the path: the kernels' inputs,
+# the main paths stepped with random actions and K1's work count; the trace
+# of a path (device kernels per step, busy time, idle share).
 ki = None
+profile_steps = None
 
 
 def log(*parts):
@@ -587,7 +622,7 @@ def s4_bounds(n, h, w, loop, sms, clock_hz):
     moved = 2 * n * h * w + n * (32 + 8)
     per_word = sass.clocks_per_item(loop, 4 * loop.marked)
     sm_s = sms * clock_hz
-    return (moved / HBM_BYTES_PER_S * 1e3,
+    return (moved / ki.HBM_BYTES_PER_S * 1e3,
             {p: c * words / sm_s * 1e3 for p, c in per_word.items()}, moved)
 
 
@@ -755,7 +790,7 @@ def probe_phase(card, gen, adv_recorded):
             f"{r['host_us']} us/launch host (N={r['n']}, {r['envs_per_block']} envs/block, "
             f"table {r['table_w']}, counts {r['counts_w']}, staged {r['staged']}, grid "
             f"{r['grid']}); library F.pad {r['library_us']} us; bound max(bytes "
-            f"{r['bytes'] / HBM_BYTES_PER_S * 1e6} us, the launch floor)")
+            f"{r['bytes'] / ki.HBM_BYTES_PER_S * 1e6} us, the launch floor)")
     # S3's bound at 4096 envs a block: one SM by the probe's definition, so the
     # launch floor (S5's A) plus its bytes at the rate one SM reaches.  That
     # rate is the faster of two loaders: one block of the bulk-copy engine
@@ -822,7 +857,7 @@ def probe_phase(card, gen, adv_recorded):
         replaces="scripts/bench_fused_ca.py:118", launches=launches["dma_floor"],
         max_abs_err=dma_err, ms=bench["dma-floor_us"] / 1e3,
         plain_ms=cuda_ms(lambda: dma_floor_plain(*dma_args), 3),
-        bound_ms=moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / ki.HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None))
     fv = exp_floor.VARIANTS[-2]  # F: 16-wide table, 4 counts, 32 blocks
     table = torch.randint(0, 100, (fv.n, fv.table_w), generator=gen, device="cuda",
@@ -832,143 +867,19 @@ def probe_phase(card, gen, adv_recorded):
         replaces="scripts/exp_floor.py:42", launches=launches["probe_floor"],
         max_abs_err=floor_err, ms=floor_rows[fv.label]["device_us"] / 1e3,
         plain_ms=cuda_ms(lambda: probe_floor_plain(fv.n, table, counts_w=fv.counts_w), 3),
-        bound_ms=floor_bytes(fv.n, fv.table_w, fv.counts_w) / HBM_BYTES_PER_S * 1e3,
+        bound_ms=floor_bytes(fv.n, fv.table_w, fv.counts_w) / ki.HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=floor_rows[fv.label]["library_us"] / 1e3))
     log(f"[time] [{card}] probe kernels' bounds: ca variants above; dma_floor "
         f"{moved_bytes(ADV_ENVS, ADV_SIZE, ADV_SIZE) / 1e6} MB/launch = "
         f"{entries[-2]['bound_ms'] * 1e3} us at {ADV_ENVS} x {ADV_SIZE}², "
         f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / 1e6} MB = "
-        f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / HBM_BYTES_PER_S * 1e6} us at {K3_ENVS} x "
+        f"{moved_bytes(K3_ENVS, K3_SIZE, K3_SIZE) / ki.HBM_BYTES_PER_S * 1e6} us at {K3_ENVS} x "
         f"{K3_SIZE}²; probe_floor (F) {floor_bytes(fv.n, fv.table_w, fv.counts_w) / 1e6} MB = "
         f"{entries[-1]['bound_ms'] * 1e3} us by bytes, far under its launch floor; plain "
         f"versions (CUDA events): " + ", ".join(f"{e['name']} {e['plain_ms'] * 1e3} us"
                                                  for e in entries))
     log(f"[probe] phase took {time.perf_counter() - t0:.1f}s")
     return entries
-
-
-# --- kernel times -------------------------------------------------------------------
-
-
-def k1_pass(grid, kin, repeats):
-    """``repeats`` passes of K1 over launches ``kin`` ((weights, params,
-    edits, edit_counts) each) on ``grid``, in place."""
-    from gymca_torch.ops.windy_kernel import windy_fused_step
-
-    for _ in range(repeats):
-        for w_, p_, e_, c_ in kin:
-            windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
-
-
-def time_k1(card, label, grid0, kin):
-    """K1's device time per call (its light and CA passes) cycling ``kin``
-    on a copy of ``grid0``, restored before every session, and its bound
-    for these inputs (``kernel_inputs.k1_work``): ``(ms, bound_ms, by)``."""
-    from gymca_torch.probes.timing import time_launches
-
-    grid = grid0.clone()
-    t = time_launches(lambda: k1_pass(grid, kin, KERNEL_REPEATS), KERNEL_REPEATS * len(kin),
-                      "windy_", reset=lambda: grid.copy_(grid0))
-    work = [ki.k1_work(grid0, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
-    moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    log(f"[time] [{card}] windy_sparse {label}: {t['device_us']} us/call of device time "
-        f"(light pass + CA pass, each kernel's own median: {t['kernels']}), median of 3 "
-        f"sessions of {t['launches']} calls (events kept "
-        f"{t['seen']}), {n_ca} CA envs with {n_edits} replayed edits and {n_mod} modify-only "
-        f"envs of {grid0.shape[0]}; bound {bound_ms * 1e3} us by {bound_by} (bytes: "
-        f"{moved / 1e6} MB/call at 3.35 TB/s = {bytes_ms * 1e3} us; operations: "
-        f"{ki.OPS_PER_CELL}/cell at 16.75 T int32 ops/s = {ops_ms * 1e3} us)")
-    return t["device_us"] / 1e3, bound_ms, bound_by
-
-
-def time_k2(card, label, launches):
-    """The Alexandridis kernel's device time per launch cycling ``launches``
-    ((x, kw) each), and its bounds: for these inputs (``alexandridis_work``:
-    10 B a cell, dousing a cell within 2 of a candidate, vdf and the burning
-    directions' planes a candidate, threefry and the box sums a candidate)
-    and dense (29 B a cell, every cell a candidate), each the larger of bytes at 3.35 TB/s and operations at the
-    int32 or float32 rate.  Returns ``(ms, bound_ms, by, dense_ms)``."""
-    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step, alexandridis_work
-    from gymca_torch.probes.timing import time_launches
-
-    def run():
-        for _ in range(KERNEL_REPEATS):
-            for x, kw in launches:
-                alexandridis_fused_step(**x, **kw)
-
-    t = time_launches(run, KERNEL_REPEATS * len(launches), "alexandridis_kernel")
-    work = [alexandridis_work(x, kw) for x, kw in launches]
-    avg = {k: sum(w[k] for w in work) / len(work) for k in work[0]}
-
-    def bound(b, i, f):
-        ops = max(i / INT32_OPS_PER_S, f / FP32_OPS_PER_S)
-        return max((b / HBM_BYTES_PER_S * 1e3, "bytes"), (ops * 1e3, "operations"))
-
-    bound_ms, by = bound(avg["bytes"], avg["int_ops"], avg["float_ops"])
-    dense_ms, dense_by = bound(avg["dense_bytes"], avg["dense_int_ops"], avg["dense_float_ops"])
-    n, h, w = launches[0][0]["grid"].shape
-    log(f"[time] [{card}] alexandridis {label} ({n} x {h}x{w}, radius "
-        f"{len(launches[0][1]['layer_coeffs'])}): {t['device_us']} us/launch of device time, "
-        f"median of 3 sessions of {t['launches']} launches (events kept {t['seen']}), "
-        f"{len(launches)} input(s); candidates {avg['candidates'] / avg['cells']} of the cells, "
-        f"{avg['candidate_directions'] / max(avg['candidates'], 1)} burning directions each, "
-        f"{avg['doused_cells'] / avg['cells']} of the cells within reach of one; "
-        f"bound for these inputs {bound_ms * 1e3} us by {by} ({avg['bytes'] / 1e6} MB at 3.35 "
-        f"TB/s = {avg['bytes'] / HBM_BYTES_PER_S * 1e6} us; {avg['int_ops'] / 1e6} M int32 at "
-        f"16.75 T/s = {avg['int_ops'] / INT32_OPS_PER_S * 1e6} us, {avg['float_ops'] / 1e6} M "
-        f"float32 at 67 T/s = {avg['float_ops'] / FP32_OPS_PER_S * 1e6} us); dense bound "
-        f"{dense_ms * 1e3} us by {dense_by} ({avg['dense_bytes'] / 1e6} MB)")
-    return t["device_us"] / 1e3, bound_ms, by, dense_ms
-
-
-# --- profile -----------------------------------------------------------------------
-
-
-def profile_steps(run, steps, label, card):
-    """Trace ``run()``, which makes ``steps`` steps of a warmed-up path: device
-    kernels per step, busy time, idle share and time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        log(f"[profile] [{card}] the profiler shows no device time; device "
-            f"kernels per step not measured")
-        return None
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    idle = 1.0 - busy / span
-    log(f"[profile] [{card}] {label}, {steps} steps traced: "
-        f"{len(spans) / steps} device kernels/step, device busy {busy / steps} us/step "
-        f"of a {span / steps} us/step device span (idle share {idle}); host wall "
-        f"under the profiler {host_s * 1e6 / steps} us/step")
-    rows = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
-        key=lambda e: e.device_time_total, reverse=True,
-    )
-    for e in rows[:12]:
-        log(f"[profile]   {e.device_time_total / steps:10.1f} us/step "
-            f"{e.count / steps:8.1f} launches/step "
-            f"{100 * e.device_time_total / busy:5.1f}%  {e.key[:90]}")
-    return {"kernels_per_step": len(spans) / steps, "idle_share": idle,
-            "busy_us_per_step": busy / steps, "span_us_per_step": span / steps}
 
 
 # --- slice 5: the trainer --------------------------------------------------------------
@@ -1206,17 +1117,27 @@ def train_phase(card):
 
     log(f"[train] (b) and (c) done at {time.perf_counter() - t_phase:.1f}s")
 
-    # (d) determinism at (b)'s size
+    # (d) determinism: at (a)'s cell, scripts/run's defaults, the trainer
+    # must repeat itself bit for bit (the JAX trainer's iteration is a pure
+    # function, tests/test_ppo.py:71); at (b)'s size, reported
     def twice(t):
         c = fresh_carry(t)
         a, b = t.train_iteration(*c), t.train_iteration(*c)
         same_m = all(torch.equal(a[-1][k], b[-1][k]) for k in a[-1])
         return same_m, params_equal(a[0].params, b[0].params, tuple(a[0].params))
 
+    default_cell = twice(tr)
+    log(f"[train] (d) train_iteration twice from one carry at scripts/run's defaults "
+        f"({args.env.num_envs} envs x {steps} steps, {args.ppo.num_minibatches} minibatches "
+        f"of {args.minibatch_size}, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), "
+        f"(metrics, params) bit for bit: {default_cell}")
+    if default_cell != (True, True):
+        fail("the trainer does not repeat itself bit for bit at scripts/run's defaults")
     dtr, _ = trainer_for(TRAIN_ARGV + ["--num-ppo-steps", "16"])
     det = {"float32_defaults": twice(dtr), "pipeline_flags": twice(ptr)}
     log(f"[train] (d) train_iteration twice from one carry at {pargs.env.num_envs} envs x "
         f"{p_steps} steps, (metrics, params) bit for bit: {det}")
+    det["default_cell"] = default_cell
     log(f"[train] phase took {time.perf_counter() - t_phase:.1f}s")
     return state, {
         "card": card, "envs": args.env.num_envs, "size": args.env.size, "steps": steps,
@@ -2118,6 +2039,180 @@ def parallel_phase(card, gen, train_sps, time_best):
     return out
 
 
+# --- slice 10: the tools of scripts/ ---------------------------------------------------
+
+
+def tools_phase(card):
+    """``[tools]`` (module docstring, phase 17)."""
+    import importlib.util
+
+    import gymca_torch.envs.advanced as advanced
+    from gymca_torch import (
+        bench_advanced,
+        exp_advanced_split,
+        exp_policy_ceiling,
+        profile_advanced,
+        profile_step,
+        update_gallery,
+        validate_fused_ca,
+        versionate,
+    )
+    from gymca_torch.ops import alexandridis_kernel, windy_kernel
+    from gymca_torch.probes import exp_split
+
+    t_phase = time.perf_counter()
+    k1, k2 = windy_kernel.windy_fused_step, alexandridis_kernel.alexandridis_fused_step
+
+    def new_params():
+        """K1's first launch on each params tensor (or the tensor it views):
+        one launch per case of profile_step and exp_split."""
+        last = [None]
+
+        def keep(i, args, kw):
+            root = args[2] if args[2]._base is None else args[2]._base
+            new, last[0] = root is not last[0], root
+            return new
+
+        return keep
+
+    def path(name, fn):
+        """Run one entry point with both counters zeroed before and read
+        after; K1's first launch on each input set and K2's first launch
+        (as the env calls it and as the module calls it alone) recorded."""
+        k1.launches = k2.launches = 0
+        with ki.launch_recorder(profile_step, "windy_fused_step", new_params()) as r1a, \
+                ki.launch_recorder(exp_split, "windy_fused_step", new_params()) as r1b, \
+                ki.alexandridis_recorder({0}) as r2_env, \
+                ki.alexandridis_recorder({0}, profile_advanced) as r2_alone, \
+                ki.alexandridis_recorder({0}, exp_advanced_split) as r2_iso:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        log(f"[tools] {name}: {seconds:.1f}s, {k1.launches} windy and {k2.launches} "
+            f"alexandridis launches")
+        return (result, {"windy": k1.launches, "alexandridis": k2.launches}, r1a + r1b,
+                r2_env + r2_alone + r2_iso)
+
+    launches, k1_recorded, k2_recorded, out = {}, [], [], {"card": card}
+    windy_cell = ["--envs", str(N_ENVS), "--size", str(H), "--steps", str(TOOLS_WINDY_STEPS)]
+    res, launches["profile_step"], r1, _ = path("profile_step",
+                                                lambda: profile_step.main(windy_cell))
+    out["profile_step"] = res
+    k1_recorded += [(a, "profile_step") for a, _ in r1]
+    if len(r1) != len(profile_step.KERNEL_CASES):
+        fail(f"expected K1 on {len(profile_step.KERNEL_CASES)} input sets in profile_step, "
+             f"recorded {len(r1)}")
+    res, launches["exp_split"], r1, _ = path("exp_split", lambda: exp_split.main(windy_cell))
+    out["exp_split"] = res
+    k1_recorded += [(a, "exp_split") for a, _ in r1]
+    if len(r1) != len(exp_split.FRACTIONS):
+        fail(f"expected K1 on {len(exp_split.FRACTIONS)} input sets in exp_split, recorded "
+             f"{len(r1)}")
+
+    adv = ["--envs", "8", "--size", str(ADV_SIZE), "--steps", str(TOOLS_ADV_STEPS)]
+    res, launches["bench_advanced"], _, r2 = path("bench_advanced",
+                                                  lambda: bench_advanced.main(adv))
+    out["bench_advanced"] = res
+    k2_recorded += [(x, "bench_advanced") for x in r2]
+    res, launches["profile_advanced"], _, r2 = path("profile_advanced",
+                                                    lambda: profile_advanced.main(adv))
+    out["profile_advanced"] = res
+    k2_recorded += [(x, "profile_advanced") for x in r2]
+    res, launches["exp_advanced_split"], _, r2 = path(
+        "exp_advanced_split", lambda: exp_advanced_split.main(
+            ["--envs", str(ADV_ENVS), "--size", str(ADV_SIZE), "--steps",
+             str(TOOLS_SPLIT_STEPS)]))
+    out["exp_advanced_split"] = res
+    k2_recorded += [(x, "exp_advanced_split") for x in r2]
+    split_k2 = res["k2_launches"]
+    log(f"[tools] exp_advanced_split's alexandridis launches by variant: {split_k2}")
+    if split_k2["step_no_ca"] != 0:
+        fail(f"the CA-stubbed variant launched the alexandridis kernel "
+             f"{split_k2['step_no_ca']} times")
+    if min(v for k, v in split_k2.items() if k not in ("step_no_ca", "obs_iso")) == 0:
+        fail("a variant of exp_advanced_split that steps the fused CA launched no kernel")
+    if advanced.alexandridis_fused_step is not k2:
+        fail("exp_advanced_split left its CA stub in the Advanced env")
+
+    rc, launches["validate_fused_ca"], _, r2 = path(
+        "validate_fused_ca", lambda: validate_fused_ca.main(
+            [str(ADV_SIZE), str(ADV_ENVS), str(TOOLS_VALIDATE_STEPS)]))
+    out["validate_fused_ca"] = rc
+    k2_recorded += [(x, "validate_fused_ca") for x in r2]
+    if rc != 0:
+        fail("validate_fused_ca printed FAIL")
+    res, launches["exp_policy_ceiling"], _, r2 = path(
+        "exp_policy_ceiling", lambda: exp_policy_ceiling.main(
+            ["--envs", "8", "--size", str(ADV_SIZE), "--steps", str(TOOLS_POLICY_STEPS)]))
+    out["exp_policy_ceiling"] = res
+    k2_recorded += [(x, "exp_policy_ceiling") for x in r2]
+    if not all(math.isfinite(r["mean_return"]) for r in res):
+        fail("exp_policy_ceiling's returns are not finite")
+
+    zero = [name for name, c in launches.items()
+            if c["windy" if name in ("profile_step", "exp_split") else "alexandridis"] == 0]
+    if zero:
+        fail(f"no kernel launch on the paths of {zero}")
+    k1_err = max(kernel_vs_plain(a)[0] for a, _ in k1_recorded)
+    k2_err = max(alexandridis_vs_plain(x, kw)[0] for (x, kw), _ in k2_recorded)
+    log(f"[kernel] windy_sparse on the tools' inputs ({len(k1_recorded)} launches recorded: "
+        f"profile_step's 1/7-CA, all-CA, none-fire and pure no-op sets, exp_split's six "
+        f"fractions): max_abs_err {k1_err} (tolerance 0)")
+    log(f"[kernel] alexandridis on the tools' inputs ({len(k2_recorded)} launches recorded, "
+        f"{sorted({p for _, p in k2_recorded})}): max_abs_err {k2_err} (tolerance 0)")
+    if k1_err != 0 or k2_err != 0:
+        fail("a kernel disagrees with its plain version on the tools' inputs")
+
+    if all(importlib.util.find_spec(m) for m in ("gymnasium", "matplotlib")):
+        with tempfile.TemporaryDirectory() as gallery:
+            written = update_gallery.main(["--out-dir", gallery, "--steps", "8"])
+            if len(written) != 2 or not all(p.stat().st_size > 0 for p in written):
+                fail(f"update_gallery wrote {written}")
+        out["update_gallery"] = [p.name for p in written]
+    else:
+        log("[tools] update_gallery not run: it needs gymnasium and matplotlib, and this "
+            "machine lacks one of them")
+        out["update_gallery"] = None
+    new = versionate.main(["--dry-run"])
+    if new.count(".") != 2:
+        fail(f"versionate --dry-run gave {new!r}")
+    out.update(launches=launches, windy_max_abs_err=k1_err, alexandridis_max_abs_err=k2_err,
+               windy_recorded_launches=len(k1_recorded),
+               alexandridis_recorded_launches=len(k2_recorded),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[tools] phase took {out['seconds']:.1f}s")
+    return out
+
+
+def tools_process():
+    """``[tools]`` in a process of its own (``python3 chip_smoke.py --tools
+    OUT``), its result read back from ``OUT``: on the H100, after the other
+    phases' profiler sessions, this process's traces lost every kernel event
+    in ten sessions running (PR 11), while a fresh process traced the same
+    parts whole."""
+    with tempfile.TemporaryDirectory() as tmp:
+        result = Path(tmp) / "tools.json"
+        sys.stdout.flush()
+        proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"), "--tools",
+                               str(result)], cwd=HERE, timeout=900)
+        if proc.returncode != 0:
+            fail(f"[tools] failed in its process (exit {proc.returncode})")
+        return json.loads(result.read_text())
+
+
+def tools_main(result_path) -> int:
+    """The process of :func:`tools_process`: the kernels are built already."""
+    global ki, profile_steps
+    sys.path.insert(0, str(HERE))
+    from gymca_torch.probes import kernel_inputs as ki
+    from gymca_torch.probes.timing import card, profile_steps
+
+    out = tools_phase(card())
+    Path(result_path).write_text(json.dumps(out, default=str))
+    return 0
+
+
 # --- main ----------------------------------------------------------------------------
 
 
@@ -2129,8 +2224,9 @@ def main() -> int:
 
     if Path(gymca_torch.__file__).resolve().parent.parent != HERE:
         fail(f"gymca_torch imported from {gymca_torch.__file__}, not this checkout")
-    global ki
+    global ki, profile_steps
     from gymca_torch.probes import kernel_inputs as ki
+    from gymca_torch.probes.timing import profile_steps
     from gymca_torch import _build, rng
     from gymca_torch.envs.bulldozer import BulldozerCore, derive_step_key
     from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
@@ -2283,13 +2379,14 @@ def main() -> int:
     # K1's device time on three input sets, each beside its bound: the
     # recorded main-path launches, every env a CA env, every env idle.
     kin = [inp[1:] for inp in recorded]
-    kernel_ms, bound_ms, bound_by = time_k1(card, "on recorded main-path launches",
-                                            recorded[0][0], kin)
+    kernel_ms, bound_ms, bound_by = ki.time_k1(card, "on recorded main-path launches",
+                                               recorded[0][0], kin, KERNEL_REPEATS)
     all_ca = ki.windy_inputs(N_ENVS, H, W, torch.int8, k_main, gen, classes="ca")
-    time_k1(card, f"with every env a CA env ({N_ENVS})", all_ca[0], [all_ca[1:]])
+    ki.time_k1(card, f"with every env a CA env ({N_ENVS})", all_ca[0], [all_ca[1:]],
+               KERNEL_REPEATS)
     noop = torch.zeros_like(kin[0][1])
-    time_k1(card, "with every env idle (recorded grid, params zero)", recorded[0][0],
-            [(kin[0][0], noop, kin[0][2], kin[0][3])])
+    ki.time_k1(card, "with every env idle (recorded grid, params zero)", recorded[0][0],
+               [(kin[0][0], noop, kin[0][2], kin[0][3])], KERNEL_REPEATS)
     plain_grid = recorded[0][0].clone()
     plain_ms = cuda_ms(lambda: windy_fused_step_plain(plain_grid, *kin[0], empty=0, tree=3,
                                                       fire=25), 3)
@@ -2434,14 +2531,14 @@ def main() -> int:
     # recorded on the main path, the first launches after a reset (2 burning
     # cells per env) and synthetic 10%-fire inputs; at 8 x 512², recorded and
     # synthetic.
-    adv_kernel_ms, adv_bound_ms, adv_bound_by, _ = time_k2(
-        card, "on recorded main-path launches", adv_recorded)
+    adv_kernel_ms, adv_bound_ms, adv_bound_by, _ = ki.time_k2(
+        card, "on recorded main-path launches", adv_recorded, KERNEL_REPEATS)
     after_reset = ki.record_alexandridis_launches(env, reset_obs, reset_info,
                                                   ki.adv_actions(gen, RECORDED_LAUNCHES,
                                                                  ADV_ENVS))
-    time_k2(card, "on the first launches after a reset", after_reset)
+    ki.time_k2(card, "on the first launches after a reset", after_reset, KERNEL_REPEATS)
     synthetic = ki.alexandridis_inputs(ADV_ENVS, ADV_SIZE, ADV_SIZE, gen)
-    time_k2(card, "on synthetic 10%-fire inputs", [synthetic])
+    ki.time_k2(card, "on synthetic 10%-fire inputs", [synthetic], KERNEL_REPEATS)
     for ablate in ABLATIONS[1:]:  # where the dense case's time goes
         t = time_launches(lambda: [alexandridis_fused_step(**synthetic[0], **synthetic[1],
                                                            ablate=ablate)
@@ -2449,9 +2546,9 @@ def main() -> int:
                           KERNEL_REPEATS, "alexandridis_kernel")
         log(f"[time] [{card}] alexandridis ablate={ablate!r} on the same synthetic inputs: "
             f"{t['device_us']} us/launch of device time (events kept {t['seen']})")
-    k3_ms = time_k2(card, "on recorded launches", k3_recorded)[0]
-    time_k2(card, "on synthetic 10%-fire inputs",
-            [ki.alexandridis_inputs(K3_ENVS, K3_SIZE, K3_SIZE, gen)])
+    k3_ms = ki.time_k2(card, "on recorded launches", k3_recorded, KERNEL_REPEATS)[0]
+    ki.time_k2(card, "on synthetic 10%-fire inputs",
+               [ki.alexandridis_inputs(K3_ENVS, K3_SIZE, K3_SIZE, gen)], KERNEL_REPEATS)
     x0, kw0 = adv_recorded[0]
     adv_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**x0, **kw0), 3)
     k3_plain_ms = cuda_ms(lambda: alexandridis_fused_step_plain(**k3_recorded[0][0],
@@ -2500,7 +2597,13 @@ def main() -> int:
     par = parallel_phase(card, gen, train["samples_per_s"], best[0])
     adv_max_err = max(adv_max_err, par["alexandridis_max_abs_err"])
 
-    # 16-17. result lines
+    # 17. slice 10: the tools of scripts/, in a process of their own
+    tools = tools_process()
+    max_err = max(max_err, tools["windy_max_abs_err"])
+    adv_max_err = max(adv_max_err, tools["alexandridis_max_abs_err"])
+    tool_launches = tools["launches"]
+
+    # 18-19. result lines
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -2508,7 +2611,10 @@ def main() -> int:
         "replaces": "gymca_tpu/ops/pallas_kernels.py:516",
         "launches": launches,
         "launches_by_path": {"bulldozer": launches,
-                             "scaling": par["scaling_windy_launches"]},
+                             "scaling": par["scaling_windy_launches"],
+                             **{k: v["windy"] for k, v in tool_launches.items()
+                                if k in ("profile_step", "exp_split")}},
+        "max_abs_err_by_path": {"bulldozer": rec_err, "tools": tools["windy_max_abs_err"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2526,13 +2632,16 @@ def main() -> int:
                              "eval": evaluation["alexandridis_launches"],
                              "curve": curve["alexandridis_launches"],
                              "policy": policy["alexandridis_launches"],
-                             "parallel": par["alexandridis_launches"]},
+                             "parallel": par["alexandridis_launches"],
+                             **{k: v["alexandridis"] for k, v in tool_launches.items()
+                                if k not in ("profile_step", "exp_split")}},
         "max_abs_err_by_path": {"advanced": adv_rec_err,
                                 "train": train["alexandridis_max_abs_err"],
                                 "eval": evaluation["alexandridis_max_abs_err"],
                                 "curve": curve["alexandridis_max_abs_err"],
                                 "policy": policy["alexandridis_max_abs_err"],
-                                "parallel": par["alexandridis_max_abs_err"]},
+                                "parallel": par["alexandridis_max_abs_err"],
+                                "tools": tools["alexandridis_max_abs_err"]},
         "max_abs_err": adv_max_err,
         "ms": adv_kernel_ms,
         "plain_ms": adv_plain_ms,
@@ -2556,6 +2665,7 @@ def main() -> int:
     log(json.dumps({"curve": curve}))
     log(json.dumps({"policy": policy}))
     log(json.dumps({"parallel": par}))
+    log(json.dumps({"tools": tools}, default=str))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
@@ -2563,4 +2673,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tools_main(sys.argv[2]) if sys.argv[1:2] == ["--tools"] else main())

@@ -6,9 +6,10 @@ into a shared library with a plain C interface, in ``gymca_torch/build/``
 source and the flags, so an edited source builds anew.  A missing ``nvcc``,
 a missing source or a failed build raises.
 
-The kernels build from the sources beside this file and into the package
-directory, so the port runs from a checkout of the repository; an installed
-copy carries no ``csrc/``.
+The kernels build from the sources beside this file into ``build/`` in the
+package directory: in a checkout, ``gymca_torch/build/``; in an installed
+copy, which carries ``csrc/*.cu`` as package data, ``build/`` inside the
+installed package, which must then be writable.
 """
 
 from __future__ import annotations

@@ -36,11 +36,18 @@ What the port does differently:
   optimizer step; ``gymca_torch.parallel.sharded.DataParallelPPO`` builds
   the trainer so;
 * on the card the convs run at torch's default precision there (cuDNN may
-  use TF32) and the dense layers in float32.
+  use TF32) and the dense layers in float32;
+* the rollout, the update and the BC warm-start run under cuDNN's
+  deterministic algorithms (:func:`cudnn_deterministic`), so that one carry
+  run twice on the card gives the same result bit for bit, as the JAX
+  trainer's pure iteration does (``tests/test_ppo.py:71``): at
+  ``scripts/run``'s defaults with TF32 off, cuDNN's default algorithms
+  did not repeat on an H100.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -61,7 +68,7 @@ from gymca_torch.config import resolve_device
 
 __all__ = ["AgentState", "Storage", "EpisodeStatistics", "PPOTrainer", "gae",
            "value_and_grad", "run_rollout_loop", "load_actor", "fire_centroid",
-           "policy_features", "greedy_fire_action", "group_mean"]
+           "policy_features", "greedy_fire_action", "group_mean", "cudnn_deterministic"]
 
 RECENT = 10  # ring-buffer length (reference jax_ppo.py:488)
 
@@ -70,6 +77,20 @@ def _over(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c`` as XLA compiles it under ``jit``: a
     multiply by the float32 reciprocal."""
     return x * float(np.float32(1.0) / np.float32(c))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, autotuning off, inside the block;
+    the caller's two flags are restored when it ends.  TF32 is left as the
+    caller set it."""
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark
+    flags.deterministic, flags.benchmark = True, False
+    try:
+        yield
+    finally:
+        flags.deterministic, flags.benchmark = saved
 
 
 def group_mean(tensors, group):
@@ -629,18 +650,20 @@ class PPOTrainer:
         """``num_ppo_steps`` env steps under the current policy:
         ``(carry, storage)`` with storage leaves (T, N, ...)."""
         carry, rows = (agent_state, stats, obs, done, info, key), []
-        for _ in range(self.args.exp.num_ppo_steps):
-            carry, row = self._step_once(carry)
-            rows.append(row)
+        with cudnn_deterministic():
+            for _ in range(self.args.exp.num_ppo_steps):
+                carry, row = self._step_once(carry)
+                rows.append(row)
         return carry, Storage.stack(rows)
 
     def learn(self, agent_state, next_obs, next_done, storage, key, ks_coef=0.0,
               critic_only=False):
         """GAE over a rollout's ``storage``, then the epochs of minibatch
         updates: ``(agent_state, losses, key, storage with advantages)``."""
-        storage = self._compute_gae(agent_state, next_obs, next_done, storage)
-        agent_state, losses, key = self._update_ppo(agent_state, storage, key, ks_coef,
-                                                    critic_only)
+        with cudnn_deterministic():
+            storage = self._compute_gae(agent_state, next_obs, next_done, storage)
+            agent_state, losses, key = self._update_ppo(agent_state, storage, key, ks_coef,
+                                                        critic_only)
         return agent_state, losses, key, storage
 
     def train_iteration(self, agent_state, stats, obs, done, info, key, ks_coef=0.0,
@@ -692,34 +715,35 @@ class PPOTrainer:
                 match = match + (torch.argmax(logit, -1) == actions[:, i]).float().mean()
             return ce, match / 2.0
 
-        obs, info = env.reset()
-        params = self.agent_state.params
-        opt_state = optim.adam_init(params, learning_rate)
-        last = {}
-        for it in range(1, num_iterations + 1):
-            grids, feats, actions = [], [], []
-            with torch.no_grad():
-                for _ in range(self.args.exp.num_ppo_steps):
-                    action = self._greedy_demo_action(obs[1])
-                    grids.append(obs[0])
-                    feats.append(self._policy_features(obs[1]) if self._use_features
-                                 else obs[1]["position"])
-                    actions.append(action)
-                    obs, _, _, _, info = env.conditional_reset(
-                        env.stateless_step(action, obs, info), action)
-            batch = [torch.stack(x).flatten(0, 1) for x in (grids, feats, actions)]
-            losses, matches = [], []
-            for mb in zip(*(x.reshape((nmb, -1) + x.shape[1:]) for x in batch)):
-                loss, match, grads = value_and_grad(bc_loss, params, *mb)
-                params, opt_state = optim.adam_update(grads, opt_state, params, learning_rate,
-                                                      eps=1e-8)
-                losses.append(loss)
-                matches.append(match)
-            loss, match = torch.stack([torch.stack(losses).mean(),
-                                       torch.stack(matches).mean()]).tolist()
-            last = {"bc_loss": loss, "bc_match": match}
-            if log_fn is not None:
-                log_fn(it, last)
+        with cudnn_deterministic():
+            obs, info = env.reset()
+            params = self.agent_state.params
+            opt_state = optim.adam_init(params, learning_rate)
+            last = {}
+            for it in range(1, num_iterations + 1):
+                grids, feats, actions = [], [], []
+                with torch.no_grad():
+                    for _ in range(self.args.exp.num_ppo_steps):
+                        action = self._greedy_demo_action(obs[1])
+                        grids.append(obs[0])
+                        feats.append(self._policy_features(obs[1]) if self._use_features
+                                     else obs[1]["position"])
+                        actions.append(action)
+                        obs, _, _, _, info = env.conditional_reset(
+                            env.stateless_step(action, obs, info), action)
+                batch = [torch.stack(x).flatten(0, 1) for x in (grids, feats, actions)]
+                losses, matches = [], []
+                for mb in zip(*(x.reshape((nmb, -1) + x.shape[1:]) for x in batch)):
+                    loss, match, grads = value_and_grad(bc_loss, params, *mb)
+                    params, opt_state = optim.adam_update(grads, opt_state, params, learning_rate,
+                                                          eps=1e-8)
+                    losses.append(loss)
+                    matches.append(match)
+                loss, match = torch.stack([torch.stack(losses).mean(),
+                                           torch.stack(matches).mean()]).tolist()
+                last = {"bc_loss": loss, "bc_match": match}
+                if log_fn is not None:
+                    log_fn(it, last)
         self.agent_state = self.agent_state.replace(params=params)
         return last
 

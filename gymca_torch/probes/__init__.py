@@ -12,6 +12,10 @@ after the script it stands for::
     python3 -m gymca_torch.probes.exp_kernel_overhead  # S3: envs per block
     python3 -m gymca_torch.probes.exp_floor            # S5: table and output shapes
 
+``python3 -m gymca_torch.probes.exp_split`` drives K1 itself
+(``gymca_torch/csrc/windy_sparse.cu``, no probe kernel of its own) with the
+work lists of ``scripts/exp_split.py``, to attribute its time by class.
+
 ``python3 -m gymca_torch.probes.ab_parent --parent DIR`` times a parent
 tree's K1 and K2, through that tree's own wrappers, beside this tree's, in
 turns on one card, on the

@@ -10,7 +10,13 @@ Shared by ``chip_smoke.py`` and :mod:`gymca_torch.probes.ab_parent`:
   :func:`record_alexandridis_launches`, or :func:`alexandridis_recorder`
   around any code that steps the Advanced env, such as the trainer);
 * :func:`k1_work`, the bytes and operations K1 must move and do on given
-  inputs (K2's count is ``alexandridis_kernel.alexandridis_work``).
+  inputs (K2's count is ``alexandridis_kernel.alexandridis_work``), and the
+  least time the card could take for them, :func:`k1_bound` and
+  :func:`k2_bound`, at an H100's peak rates;
+* :func:`time_k1` and :func:`time_k2`: a kernel's device time per launch on
+  given inputs beside that bound;
+* :func:`launch_recorder`: copies of a kernel's inputs at chosen launches of
+  any code that calls it.
 
 Everything is made on ``device`` ("cuda" unless the caller says otherwise).
 """
@@ -25,11 +31,18 @@ from gymca_torch.ops.windy_kernel import CLUSTER_BLOCKS
 
 __all__ = ["OPS_PER_CELL", "k1_work", "windy_inputs", "draw_actions", "run_steps",
            "record_windy_launches", "alexandridis_inputs", "alexandridis_keywords",
-           "adv_actions", "adv_run", "alexandridis_recorder",
-           "record_alexandridis_launches", "WINDY_CELLS",
-           "K2_LAYOUTS"]
+           "adv_actions", "adv_run", "alexandridis_recorder", "launch_recorder",
+           "record_alexandridis_launches", "WINDY_CELLS", "K2_LAYOUTS",
+           "HBM_BYTES_PER_S", "INT32_OPS_PER_S", "FP32_OPS_PER_S", "k1_bound", "k2_bound",
+           "time_k1", "time_k2"]
 
 WINDY_CELLS = (0, 3, 25)  # empty, tree, fire of the windy env's grids
+# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM3.  Integer ALU rate:
+# the 67 TFLOP/s float32 peak counts an FMA as two operations on 128 lanes
+# per SM; Hopper's SM has 64 int32 lanes, so 67 / 4 = 16.75 T int32 ops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.75e12
+FP32_OPS_PER_S = 67e12
 # Integer operations K1's function needs per cell of a CA env: two compares
 # to classify the cell, two selects to write it back, and the word-parallel
 # stencil (about 40 operations per 32-cell word, counted from the kernel).
@@ -52,6 +65,108 @@ def k1_work(grid, params, edit_counts, k):
     moved = (n * (16 + 12) + n_ca * (32 + 4 + 2 * h * w * item) + 4 * n_edits
              + n_mod * 2 * item)
     return moved, n_ca * h * w * OPS_PER_CELL, n_ca, n_mod, n_edits
+
+
+def k1_bound(grid, kin) -> dict:
+    """K1's least time (ms) on ``grid`` for launches ``kin`` ((weights,
+    params, edits, edit_counts) each), the mean over the launches of
+    :func:`k1_work`: the larger of its bytes at ``HBM_BYTES_PER_S`` and its
+    operations at ``INT32_OPS_PER_S``.  Returns ``bound_ms``, ``by`` and the
+    counts behind them."""
+    work = [k1_work(grid, p_, c_, e_.shape[1]) for _, p_, e_, c_ in kin]
+    moved, ops, n_ca, n_mod, n_edits = (sum(x) / len(work) for x in zip(*work))
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    bound_ms, by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    return dict(bound_ms=bound_ms, by=by, bytes=moved, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                ca=n_ca, modify=n_mod, edits=n_edits)
+
+
+def k2_bound(launches) -> dict:
+    """The Alexandridis kernel's least time (ms) for ``launches`` ((x, kw)
+    each), the mean over the launches of ``alexandridis_work``, for these
+    inputs and dense (every cell a candidate): each the larger of the bytes
+    at ``HBM_BYTES_PER_S`` and the operations at the int32 or float32 rate.
+    Returns ``bound_ms``, ``by``, ``dense_ms``, ``dense_by`` and ``work``, the
+    mean counts."""
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_work
+
+    work = [alexandridis_work(x, kw) for x, kw in launches]
+    avg = {k: sum(w[k] for w in work) / len(work) for k in work[0]}
+
+    def bound(b, i, f):
+        ops = max(i / INT32_OPS_PER_S, f / FP32_OPS_PER_S)
+        return max((b / HBM_BYTES_PER_S * 1e3, "bytes"), (ops * 1e3, "operations"))
+
+    bound_ms, by = bound(avg["bytes"], avg["int_ops"], avg["float_ops"])
+    dense_ms, dense_by = bound(avg["dense_bytes"], avg["dense_int_ops"], avg["dense_float_ops"])
+    return dict(bound_ms=bound_ms, by=by, dense_ms=dense_ms, dense_by=dense_by, work=avg)
+
+
+def k1_pass(grid, kin, repeats):
+    """``repeats`` passes of K1 over launches ``kin`` ((weights, params,
+    edits, edit_counts) each) on ``grid``, in place."""
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+
+    for _ in range(repeats):
+        for w_, p_, e_, c_ in kin:
+            windy_fused_step(grid, w_, p_, e_, c_, empty=0, tree=3, fire=25)
+
+
+def time_k1(card, label, grid0, kin, repeats):
+    """K1's device time per call (its light and CA passes) over ``repeats``
+    passes of ``kin`` on a copy of ``grid0``, restored before every session,
+    and its bound for these inputs (:func:`k1_bound`), printed: ``(ms,
+    bound_ms, by)``."""
+    from gymca_torch.probes.timing import time_launches
+
+    grid = grid0.clone()
+    t = time_launches(lambda: k1_pass(grid, kin, repeats), repeats * len(kin),
+                      "windy_", reset=lambda: grid.copy_(grid0))
+    b = k1_bound(grid0, kin)
+    print(f"[time] [{card}] windy_sparse {label}: {t['device_us']} us/call of device time "
+          f"(light pass + CA pass, each kernel's own median: {t['kernels']}), median of 3 "
+          f"sessions of {t['launches']} calls (events kept "
+          f"{t['seen']}), {b['ca']} CA envs with {b['edits']} replayed edits and "
+          f"{b['modify']} modify-only envs of {grid0.shape[0]}; bound {b['bound_ms'] * 1e3} us "
+          f"by {b['by']} (bytes: {b['bytes'] / 1e6} MB/call at 3.35 TB/s = "
+          f"{b['bytes_ms'] * 1e3} us; operations: {OPS_PER_CELL}/cell at 16.75 T int32 ops/s "
+          f"= {b['ops_ms'] * 1e3} us)", flush=True)
+    return t["device_us"] / 1e3, b["bound_ms"], b["by"]
+
+
+def time_k2(card, label, launches, repeats):
+    """The Alexandridis kernel's device time per launch over ``repeats``
+    passes of ``launches`` ((x, kw) each), and its bounds (:func:`k2_bound`:
+    10 B a cell, dousing a cell within 2 of a candidate, vdf and the burning
+    directions' planes a candidate, threefry and the box sums a candidate;
+    dense, 29 B a cell, every cell a candidate), printed.  Returns ``(ms,
+    bound_ms, by, dense_ms)``."""
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.probes.timing import time_launches
+
+    def run():
+        for _ in range(repeats):
+            for x, kw in launches:
+                alexandridis_fused_step(**x, **kw)
+
+    t = time_launches(run, repeats * len(launches), "alexandridis_kernel")
+    b = k2_bound(launches)
+    avg = b["work"]
+    n, h, w = launches[0][0]["grid"].shape
+    print(f"[time] [{card}] alexandridis {label} ({n} x {h}x{w}, radius "
+          f"{len(launches[0][1]['layer_coeffs'])}): {t['device_us']} us/launch of device "
+          f"time, median of 3 sessions of {t['launches']} launches (events kept {t['seen']}), "
+          f"{len(launches)} input(s); candidates {avg['candidates'] / avg['cells']} of the "
+          f"cells, {avg['candidate_directions'] / max(avg['candidates'], 1)} burning "
+          f"directions each, {avg['doused_cells'] / avg['cells']} of the cells within reach "
+          f"of one; bound for these inputs {b['bound_ms'] * 1e3} us by {b['by']} "
+          f"({avg['bytes'] / 1e6} MB at 3.35 TB/s = {avg['bytes'] / HBM_BYTES_PER_S * 1e6} "
+          f"us; {avg['int_ops'] / 1e6} M int32 at 16.75 T/s = "
+          f"{avg['int_ops'] / INT32_OPS_PER_S * 1e6} us, {avg['float_ops'] / 1e6} M float32 "
+          f"at 67 T/s = {avg['float_ops'] / FP32_OPS_PER_S * 1e6} us); dense bound "
+          f"{b['dense_ms'] * 1e3} us by {b['dense_by']} ({avg['dense_bytes'] / 1e6} MB)",
+          flush=True)
+    return t["device_us"] / 1e3, b["bound_ms"], b["by"], b["dense_ms"]
 
 
 def windy_inputs(n, h, w, dtype, k, gen, device="cuda", classes="mixed", seams=False):
@@ -114,20 +229,9 @@ def record_windy_launches(core, states, actions):
     launch: a list of ``(grid, weights, params, edits, edit_counts)``."""
     import gymca_torch.envs.bulldozer as bulldozer
 
-    real = bulldozer.windy_fused_step
-    recorded = []
-
-    def recorder(grid, weights, params, edits, edit_counts, **kw):
-        recorded.append(tuple(t.clone() for t in (grid, weights, params, edits,
-                                                   edit_counts)))
-        return real(grid, weights, params, edits, edit_counts, **kw)
-
-    bulldozer.windy_fused_step = recorder
-    try:
+    with launch_recorder(bulldozer, "windy_fused_step") as recorded:
         run_steps(core, states, actions)
-    finally:
-        bulldozer.windy_fused_step = real
-    return recorded
+    return [args for args, _ in recorded]
 
 
 # Layouts of the synthetic K2 inputs, against the kernel's 32 x 64 tiles.
@@ -213,28 +317,52 @@ def adv_run(env, obs, info, actions):
 
 
 @contextlib.contextmanager
-def alexandridis_recorder(keep=None):
-    """While open, keep copies of the Advanced env's kernel inputs at each
-    launch whose index (0 for the first launch inside the block) is in
-    ``keep``, or at every launch if ``keep`` is None.  Yields the list of
-    ``(x, kw)`` it fills."""
-    import gymca_torch.envs.advanced as advanced
-
-    real = advanced.alexandridis_fused_step
+def launch_recorder(module, name, keep=None, record=None):
+    """While open, ``module.<name>`` (a kernel's wrapper as the code under
+    test looks it up: a module that imported it by name, never the kernel's
+    own module, whose wrapper counts its launches through that name) keeps
+    copies of its inputs at each call whose index (0
+    for the first call inside the block) is in ``keep``, or for which
+    ``keep(index, args, kw)`` is true when ``keep`` is callable, or at every
+    call if ``keep`` is None: ``record(args, kw)`` of the copied positional
+    and keyword arguments, ``(args, kw)`` by default.  Yields the list it
+    fills."""
+    real = getattr(module, name)
     recorded, seen = [], [0]
+    if keep is None:
+        wanted = lambda i, args, kw: True  # noqa: E731
+    elif callable(keep):
+        wanted = keep
+    else:
+        wanted = lambda i, args, kw: i in keep  # noqa: E731
+
+    def copy(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
 
     def recorder(*args, **kw):
-        if keep is None or seen[0] in keep:
-            names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
-            recorded.append(({k: t.clone() for k, t in zip(names, args)}, kw))
+        if wanted(seen[0], args, kw):
+            a, k = tuple(copy(v) for v in args), {n: copy(v) for n, v in kw.items()}
+            recorded.append(record(a, k) if record else (a, k))
         seen[0] += 1
         return real(*args, **kw)
 
-    advanced.alexandridis_fused_step = recorder
+    setattr(module, name, recorder)
     try:
         yield recorded
     finally:
-        advanced.alexandridis_fused_step = real
+        setattr(module, name, real)
+
+
+def alexandridis_recorder(keep=None, module=None):
+    """:func:`launch_recorder` of the Alexandridis kernel as ``module`` calls
+    it (the Advanced env, ``gymca_torch.envs.advanced``, by default), with
+    every positional input: each record is ``(x, kw)``, ``x`` the inputs by
+    name."""
+    import gymca_torch.envs.advanced as advanced
+
+    names = ("grid", "fire_age", "dousing", "vdf", "exp_slope", "wind_rows", "seeds")
+    return launch_recorder(module or advanced, "alexandridis_fused_step", keep,
+                           lambda a, kw: (dict(zip(names, a)), kw))
 
 
 def record_alexandridis_launches(env, obs, info, actions):

@@ -16,6 +16,14 @@ of its launches, or more events than there were launches, is made again (up
 to three times), and the median hides one session that reads short.  Each
 kernel's mean is taken from its own events, so a session that loses more of
 one kernel's events than another's is not biased towards the other.
+
+A part of a step, as the step breakdowns report it
+(``gymca_torch.profile_step`` and its siblings), is timed by
+:func:`time_steps`: host µs a step, the best of a few runs from the same
+start, each to a synchronize, and on a card the device's own numbers from
+a traced run of its first ``TRACE_STEPS`` steps (:func:`profile_steps`:
+device kernels and busy µs a step, the idle share of the device span, the
+kernels that take most of it).
 """
 
 from __future__ import annotations
@@ -27,8 +35,13 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-__all__ = ["card", "kernel_durations_us", "cuda_ms", "host_us", "time_launches"]
+__all__ = ["card", "kernel_durations_us", "cuda_ms", "host_us", "time_launches",
+           "profile_steps", "time_steps", "device_note"]
 
+# Steps a traced run of a path makes (``time_steps``): a trace's events
+# are read back in Python, and a step of the key chain alone launches
+# hundreds of kernels, so longer traces take minutes to read.
+TRACE_STEPS = 10
 # A profiler session on the H100 keeps one event fewer than a batch
 # launched as a rule and, now and then, none, at times in several sessions
 # running: so up to this many sessions, a pause growing between them,
@@ -139,3 +152,98 @@ def time_launches(run: Callable[[], object], launches: int, kernel: str, reps: i
     return {"device_us": statistics.median(device), "host_us": min(host),
             "launches": launches, "seen": seen,
             "kernels": {k: statistics.median(m[k] for m in means) for k in names}}
+
+
+def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
+                  top: int = 12) -> Optional[dict]:
+    """Trace ``run()``, which makes ``steps`` steps of a warmed-up path: device
+    kernels per step, busy time, idle share and, printed, the ``top`` kernels
+    by device time.  Returns None, and says so, when the profiler shows no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"[profile] [{card}] the profiler shows no device time; device "
+              f"kernels per step not measured", flush=True)
+        return None
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    idle = 1.0 - busy / span
+    print(f"[profile] [{card}] {label}, {steps} steps traced: "
+          f"{len(spans) / steps} device kernels/step, device busy {busy / steps} us/step "
+          f"of a {span / steps} us/step device span (idle share {idle}); host wall "
+          f"under the profiler {host_s * 1e6 / steps} us/step", flush=True)
+    rows = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
+        key=lambda e: e.device_time_total, reverse=True,
+    )
+    for e in rows[:top]:
+        print(f"[profile]   {e.device_time_total / steps:10.1f} us/step "
+              f"{e.count / steps:8.1f} launches/step "
+              f"{100 * e.device_time_total / busy:5.1f}%  {e.key[:90]}", flush=True)
+    return {"kernels_per_step": len(spans) / steps, "idle_share": idle,
+            "busy_us_per_step": busy / steps, "span_us_per_step": span / steps}
+
+
+def time_steps(run: Callable[[int], object], steps: int, label: str, device,
+               reset: Optional[Callable[[], object]] = None, reps: int = 3,
+               card: Optional[str] = None, top: int = 5,
+               trace_steps: int = TRACE_STEPS) -> dict:
+    """One part of a step breakdown: ``run(k)`` makes the first ``k`` steps
+    of the part, each call from the state ``reset()`` restores (outside the
+    clock).  After one untimed call, host µs a step is the best of ``reps``
+    calls of ``run(steps)``, each timed to a ``torch.cuda.synchronize()`` on
+    a card.  On a card ``run(min(steps, trace_steps))`` is then traced
+    (:func:`profile_steps`; a part of a few kernels a step, such as a kernel
+    alone, can trace all its steps): ``busy_us_per_step``,
+    ``kernels_per_step`` and ``idle_share`` (None where the profiler saw no
+    device time, and on the CPU, where only the host clock runs)."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reset = reset or (lambda: None)
+    reset()
+    run(steps)
+    best = float("inf")
+    for _ in range(reps):
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        run(steps)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    out = {"host_us": best / steps * 1e6, "busy_us_per_step": None,
+           "kernels_per_step": None, "idle_share": None}
+    if cuda:
+        reset()
+        traced = min(steps, trace_steps)
+        prof = profile_steps(lambda: run(traced), traced, label,
+                             card or torch.cuda.get_device_name(), top)
+        if prof is not None:
+            out.update({k: prof[k] for k in ("busy_us_per_step", "kernels_per_step",
+                                             "idle_share")})
+    return out
+
+
+def device_note(t: dict) -> str:
+    """The device's numbers of a :func:`time_steps` result, for a line."""
+    if t["busy_us_per_step"] is None:
+        return "device not measured (host clock only)"
+    return (f"device busy {t['busy_us_per_step']:.1f} us/step, "
+            f"{t['kernels_per_step']:.1f} kernels/step, idle share {t['idle_share']:.3f}")

@@ -831,3 +831,81 @@ def test_advanced_spatial_on_the_card_matches_the_cpu(cuda, nccl):
         assert torch.equal(g.cpu(), cg) and torch.equal(r.cpu(), cr) and torch.equal(d.cpu(), cd)
         for k in pe:
             assert torch.equal(pe[k].cpu(), cpu_pe[k]), k
+
+
+# --- slice 10: the trainer's determinism and the tools of scripts/ ----------------------
+
+
+@pytest.mark.gpu
+def test_train_iteration_repeats_itself_at_the_default_cell(cuda):
+    """``scripts/run``'s defaults (8 envs at 256², 128 steps, 4 minibatches
+    of 256): ``train_iteration`` twice from one carry gives the same params
+    and metrics bit for bit (the JAX trainer's iteration is pure,
+    ``tests/test_ppo.py:71``), and the caller's cuDNN flags are left as they
+    were."""
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+    from gymca_torch.run import args_to_structured_args, build_env, parse_args
+
+    args = args_to_structured_args(parse_args(["-n", "8", "-z", "256"]))
+    assert (args.exp.num_ppo_steps, args.minibatch_size) == (128, 256)
+    env = build_env(args)
+    trainer = PPOTrainer(env, args, key=rng.key(args.exp.seed))
+    obs, info = env.reset()
+    n = args.env.num_envs
+    carry = (trainer.agent_state, EpisodeStatistics.create(n), obs,
+             torch.zeros(n, dtype=torch.bool, device=cuda), info, trainer.key)
+    flags = torch.backends.cudnn
+    saved = flags.deterministic, flags.benchmark
+    a, b = trainer.train_iteration(*carry), trainer.train_iteration(*carry)
+    assert (flags.deterministic, flags.benchmark) == saved
+    for g in a[0].params:
+        for k in a[0].params[g]:
+            assert torch.equal(a[0].params[g][k], b[0].params[g][k]), (g, k)
+    for k in a[-1]:
+        assert torch.equal(a[-1][k], b[-1][k]), k
+
+
+@pytest.mark.gpu
+def test_profile_step_entry_point_on_the_card(cuda, capsys):
+    """``python3 -m gymca_torch.profile_step --steps 20`` at 256 x 256²: every
+    part with the device's numbers, K1 launched on every kernel part."""
+    from gymca_torch import profile_step
+
+    before = wk.windy_fused_step.launches
+    out = profile_step.main(["--envs", "256", "--steps", "20"])
+    launched = wk.windy_fused_step.launches - before
+    assert launched >= 20 * (1 + 3 + 1) * (1 + len(profile_step.KERNEL_CASES))
+    for name, t in out.items():
+        assert t["host_us"] > 0 and t["busy_us_per_step"] > 0, name
+    for label in profile_step.KERNEL_CASES:
+        t = out[f"kernel only ({label})"]
+        assert t["k1_device_us"] > 0 and t["k1_bound_us"] > 0
+    assert "kernel only (pure no-op)" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_exp_split_entry_point_on_the_card(cuda):
+    """``python3 -m gymca_torch.probes.exp_split --steps 20`` at 256 x 256²:
+    the six fractions, each with K1's device time."""
+    from gymca_torch.probes import exp_split
+
+    before = wk.windy_fused_step.launches
+    out = exp_split.main(["--envs", "256", "--steps", "20"])
+    assert wk.windy_fused_step.launches - before >= 6 * 20 * 5
+    assert len(out) == len(exp_split.FRACTIONS)
+    assert all(t["k1_device_us"] > 0 for t in out.values())
+
+
+@pytest.mark.gpu
+def test_stubbed_ca_launches_no_kernel_on_the_card(cuda):
+    """``exp_advanced_split`` at 8 x 256², 3 steps: the CA-stubbed variant
+    launches no Alexandridis kernel, the others that step the CA do, and the
+    stub is gone afterwards."""
+    import gymca_torch.envs.advanced as advanced
+    from gymca_torch import exp_advanced_split
+
+    out = exp_advanced_split.main(["--envs", "8", "--steps", "3"])
+    k2 = out["k2_launches"]
+    assert k2["step_no_ca"] == 0 and k2["obs_iso"] == 0
+    assert min(k2[v] for v in ("full", "step_only", "step_no_obs", "ca_iso")) > 0
+    assert advanced.alexandridis_fused_step is ak.alexandridis_fused_step

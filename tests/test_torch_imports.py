@@ -2,7 +2,9 @@
 anywhere in ``gymca_torch/`` (its probes and trainer included) or
 ``chip_smoke.py``, and gymnasium only in the gymnasium adapter modules
 (``gym_env.py``, loaded on demand, and ``registration.py``, which
-registers the ids only where gymnasium can be imported).  ``import
+registers the ids only where gymnasium can be imported) and in
+``update_gallery.py``, whose ``gym.make`` of every id is the script's
+(imported when it runs).  ``import
 gymca_torch`` and the cores work where gymnasium and matplotlib are
 missing, as on the card's machine.
 
@@ -19,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax", "orbax")
-GYM_ADAPTERS = {ROOT / "gymca_torch" / "gym_env.py", ROOT / "gymca_torch" / "registration.py"}
+GYM_ADAPTERS = {ROOT / "gymca_torch" / "gym_env.py", ROOT / "gymca_torch" / "registration.py",
+                ROOT / "gymca_torch" / "update_gallery.py"}
 PROBES = ("timing", "ca_variants_kernel", "dma_floor_kernel", "floor_kernel",
           "exp_ca_variants", "bench_fused_ca", "exp_counts_out", "exp_launch_floor",
           "exp_kernel_overhead", "exp_floor", "sass")
@@ -33,6 +36,11 @@ SLICE_8 = ("ops/alexandridis_legacy", "train_curve", "eval_policy")
 # parallel/ on torch.distributed and the scaling harness (ROADMAP §1 item 9).
 PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/sharded", "parallel/spatial",
             "parallel/spatial_env", "bench_scaling")
+# The profiling, validation and tool entry points of scripts/ (ROADMAP §1
+# item 2 and the step breakdowns).
+TOOLS = ("profile_step", "probes/exp_split", "bench_advanced", "profile_advanced",
+         "exp_advanced_split", "validate_fused_ca", "exp_policy_ceiling", "update_gallery",
+         "versionate", "probes/kernel_inputs")
 
 
 def imported_modules(path: Path):
@@ -61,7 +69,7 @@ def test_port_sources_exist():
     assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
-    for mod in SURFACE + SLICE_8 + PARALLEL:
+    for mod in SURFACE + SLICE_8 + PARALLEL + TOOLS:
         assert f"gymca_torch/{mod}.py" in names
 
 
@@ -94,6 +102,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in SURFACE),
     *("gymca_torch." + m.replace("/", ".") for m in SLICE_8),
     *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in PARALLEL),
+    *("gymca_torch." + m.replace("/", ".") for m in TOOLS),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)
