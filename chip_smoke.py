@@ -69,7 +69,11 @@ Phases, each fatal on failure:
 7. slice 2's main path: reset 64 envs at 256² and run 200 steps of
    ``stateless_step`` + ``conditional_reset`` with random (move, shoot, 0)
    actions under the same sync-error mode, the counters zeroed before and
-   read after (200 Alexandridis launches); the fused env on the card
+   read after (200 Alexandridis launches); the terrain that env drew on
+   the card from a card key, and one drawn there at 17 x 23 x 3 (a scalar
+   remainder in the JAX bundle's slope loops), against the CPU's draw from
+   the same seed, nothing injected, every leaf bit for bit (the count of
+   differing elements per leaf printed); the fused env on the card
    against the same env on the CPU with the kernel's plain version (4 envs
    at 64², bit for bit, env 0 made to terminate and reset half way); the
    kernel against its plain version on three launches recorded from the
@@ -261,6 +265,7 @@ KERNEL_REPEATS = 10  # passes over the recorded launches when timing a kernel
 # Slice 2: the Advanced env (bench.py:143-195 runs 1000 steps, cut here to 200).
 ADV_ENVS, ADV_SIZE, ADV_STEPS = 64, 256, 200
 ADV_PARITY_ENVS, ADV_PARITY_SIZE, ADV_PARITY_STEPS = 4, 64, 20
+TERRAIN_ODD_SHAPE = (17, 23, 3)  # (H, W, envs): a width with a scalar remainder
 K3_ENVS, K3_SIZE, K3_STEPS = 8, 512, 20
 DIST_STEPS, DIST_CHECKPOINTS = 300, (100, 200, 300)
 # Slice 3: the probes' entry points, their launches per repetition cut from
@@ -493,6 +498,33 @@ def adv_parity(gen):
             mismatches.append(f"step {i}: env 0 was not reset")
     fires = int((c_obs[1]["per_env_context"]["true_grid"] == 2).sum())
     return mismatches, fires
+
+
+def check_terrain(card_env):
+    """The terrain ``card_env`` drew on the card from a card key against the
+    CPU's draw from the same seed: the elements of each leaf that differ in
+    their bits, printed; any is fatal."""
+    from gymca_torch import rng
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+
+    def bits(t):
+        if not t.is_floating_point():
+            return t
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    if card_env.starting_key.device.type != "cuda":
+        fail("the card env's terrain was not drawn from a key on the card")
+    shape = (card_env.nrows, card_env.ncols, card_env.num_envs)
+    t0 = time.perf_counter()
+    cpu = AdvancedForestFireBulldozerEnv(*shape[:2], key=rng.key(SEED, device="cpu"),
+                                         num_envs=shape[2], device="cpu")
+    differing = {k: int((bits(v.cpu()) != bits(cpu._terrain_ctx[k])).sum())
+                 for k, v in card_env._terrain_ctx.items()}
+    log(f"[terrain] {shape[0]}x{shape[1]} x {shape[2]} envs drawn on the card from key "
+        f"{SEED} against the CPU's draw ({time.perf_counter() - t0:.1f}s), elements "
+        f"differing per leaf: {differing}")
+    if any(differing.values()):
+        fail(f"the terrain drawn on the card differs from the CPU's at {shape}: {differing}")
 
 
 def fire_stats(env, obs, info, steps, checkpoints):
@@ -2417,6 +2449,9 @@ def main() -> int:
                                          num_envs=ADV_ENVS)
     if not env.use_fused_ca:
         fail("the Advanced env does not take the fused kernel on the card")
+    check_terrain(env)
+    h, w, n = TERRAIN_ODD_SHAPE
+    check_terrain(AdvancedForestFireBulldozerEnv(h, w, key=rng.key(SEED), num_envs=n))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reset_obs, reset_info = env.reset()

@@ -286,12 +286,12 @@ class AdvancedForestFireBulldozerEnv:
         if self.use_hidden:
             density = terrain_mod.init_density(k_den, h, w, n)
             vegetation = terrain_mod.init_vegetation(k_veg, h, w, n)
-            altitude = terrain_mod.init_altitude(k_alt, h, w, n)
+            altitude, slope = terrain_mod.init_altitude_and_slope(k_alt, h, w, n)
         else:
             density = terrain_mod.init_density_same(h, w, n, self.device)
             vegetation = terrain_mod.init_vegetation_same(h, w, n, self.device)
             altitude = terrain_mod.init_altitude_same(h, w, n, self.device)
-        slope = terrain_mod.get_slope(altitude)
+            slope = terrain_mod.get_slope(altitude)
         return {
             "density": density,
             "vegetation": vegetation,

@@ -20,8 +20,10 @@ Alexandridis ``exp_slope`` go through float32 ``cos``, ``arctan`` and
 ``exp``) with plain torch ops, on the CPU and the card alike.  The divisions
 by constants are multiplications by the float32 reciprocal, as XLA folds
 them in the env's jitted terrain, and the hills' square root goes through
-float64 (torch's CPU float32 ``sqrt`` is not correctly rounded).  The quirk
-of the reference is kept:
+float64 (torch's CPU float32 ``sqrt`` is not correctly rounded).  The env's
+slope follows the fused multiply-subtracts of XLA's code for the jitted
+bundle (:func:`bundle_slope`); :func:`get_slope` is ``get_slope`` jitted
+alone.  The quirk of the reference is kept:
 ``get_winds(use_hidden)``'s non-hidden branch is dead, all 8 directional
 matrices are returned regardless.
 """
@@ -41,10 +43,12 @@ __all__ = [
     "init_vegetation",
     "init_density",
     "init_altitude",
+    "init_altitude_and_slope",
     "init_vegetation_same",
     "init_density_same",
     "init_altitude_same",
     "get_slope",
+    "bundle_slope",
     "get_winds",
     "calc_pw",
     "create_up_to_k_mappings",
@@ -206,9 +210,9 @@ def init_density(key, nrows: int, ncols: int, num_envs: int) -> torch.Tensor:
     return _patch_field(rng.split(key, num_envs), nrows, ncols)
 
 
-def _altitude_field(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
-    """Altitudes of ``len(keys)`` envs: noise + cosine hills + linear
-    slopes, /10."""
+def _altitude_sum(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
+    """The float32 sums, before the /10, of the altitudes of ``len(keys)``
+    envs: noise + cosine hills + linear slopes."""
     sub = rng.split(keys, 5)
     k_base, k_nh, k_hills, k_ns, k_slopes = (sub[:, i] for i in range(5))
     alt = rng.uniform(k_base, (nrows, ncols), minval=0.0, maxval=5.0)
@@ -243,14 +247,29 @@ def _altitude_field(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
             height.to(TYPE_BOX), min=1.0)
         ramp = torch.where(inside, height_diff * progress, 0.0)
         alt = alt + torch.where(i < num_slopes, ramp, 0.0)
+    return alt
+
+
+def _altitude_field(keys: torch.Tensor, nrows: int, ncols: int) -> torch.Tensor:
+    """Altitudes of ``len(keys)`` envs: noise + cosine hills + linear
+    slopes, /10."""
     # / 10 as the env's jitted terrain computes it: XLA folds a division by a
     # constant into a multiplication by its float32 reciprocal.
-    return (alt * _RECIP_10).to(TYPE_BOX)
+    return (_altitude_sum(keys, nrows, ncols) * _RECIP_10).to(TYPE_BOX)
 
 
 def init_altitude(key, nrows: int, ncols: int, num_envs: int) -> torch.Tensor:
     """(num_envs, H, W) float32 altitudes from one (2,) key."""
     return _altitude_field(rng.split(key, num_envs), nrows, ncols)
+
+
+def init_altitude_and_slope(key, nrows: int, ncols: int, num_envs: int):
+    """``(altitude, slope)`` from one (2,) key as the Advanced env's jitted
+    terrain bundle computes them: :func:`init_altitude`'s altitudes and
+    :func:`bundle_slope`'s slopes."""
+    alt_sum = _altitude_sum(rng.split(key, num_envs), nrows, ncols)
+    altitude = (alt_sum * _RECIP_10).to(TYPE_BOX)
+    return altitude, bundle_slope(alt_sum, altitude)
 
 
 # Uniform (non-hidden) variants.
@@ -287,6 +306,80 @@ def get_slope(altitude: torch.Tensor) -> torch.Tensor:
                 continue
             neigh = padded[..., 1 + di:1 + di + h, 1 + dj:1 + dj + w]
             diff = altitude - neigh
+            if di != 0 and dj != 0:
+                diff = diff * _RECIP_1414  # / 1.414, folded as XLA folds it
+            row_entries.append(torch.rad2deg(xla_atan(diff)))
+        out.append(torch.stack(row_entries, dim=-1))
+    slope = torch.stack(out, dim=-2)  # (..., H, W, 3, 3)
+    rows = torch.arange(h, device=altitude.device)
+    cols = torch.arange(w, device=altitude.device)
+    interior = (((rows > 0) & (rows < h - 1))[:, None]
+                & ((cols > 0) & (cols < w - 1))[None, :])
+    return torch.where(interior[..., None, None], slope, 0.0).to(TYPE_BOX)
+
+
+# The neighbours whose difference XLA's CPU code for the env's terrain bundle
+# rounds once from an unrounded product sum * 0.1 (see bundle_slope).
+_CENTRE_FUSED = ((-1, 1), (0, -1), (0, 1))  # fl32(sum_c * 0.1 - alt_n)
+_NEIGHBOUR_FUSED = (1, 0)  # fl32(alt_c - sum_n * 0.1)
+_TAIL_FUSED = (-1, -1)  # centre-fused in the scalar remainder of its loop
+
+
+def bundle_slope(alt_sum: torch.Tensor, altitude: torch.Tensor) -> torch.Tensor:
+    """:func:`get_slope` of ``altitude = fl32(alt_sum * 0.1)`` as the
+    Advanced env's jitted terrain bundle rounds it, (..., H, W) ->
+    (..., H, W, 3, 3).
+
+    Inside the bundle XLA does not read every altitude back: its slope
+    fusion recomputes some as ``alt_sum * 0.1`` (``_altitude_field``'s
+    ``/ 10``, folded), and LLVM contracts some of those products with the
+    subtraction that follows into one fused multiply-subtract, so the
+    difference is rounded once.  In jax 0.9.0's CPU code for x86 (the
+    fusion is one loop nest per row of the 3x3 tensor, over columns in an
+    8-lane body with a scalar remainder), with ``c = fl32(0.1)``:
+
+    * (-1, +1), (0, -1), (0, +1): ``fl32(sum_c * c - alt_n)``;
+    * (+1, 0): ``fl32(alt_c - sum_n * c)``;
+    * (-1, -1): ``fl32(alt_c - alt_n)`` in the 8-lane body,
+      ``fl32(sum_c * c - alt_n)`` in the scalar remainder: the columns from
+      ``8 * (W // 8)`` when W >= 16, the whole row when W < 16;
+    * (-1, 0), (+1, -1), (+1, +1): ``fl32(alt_c - alt_n)``, as
+      :func:`get_slope`.
+
+    Read from ``XLA_FLAGS=--xla_dump_to=DIR --xla_dump_hlo_as_text``: the
+    concatenate fusion with eight ``atan2`` in
+    ``*.jit__terrain_bundle.cpu_after_optimizations.txt``, its
+    ``*.ir-with-opt.ll`` and ``objdump -d`` of its ``*.o`` (``vfmsub`` and
+    ``vfnmadd`` where a difference is fused, ``vsub`` where not).  Another
+    jax, or a CPU without FMA, may contract other products."""
+    h, w = altitude.shape[-2:]
+    lead = altitude.shape[:-2]
+
+    def edge_pad(t):
+        return torch.nn.functional.pad(t.reshape(-1, 1, h, w), (1, 1, 1, 1),
+                                       mode="replicate").reshape(lead + (h + 2, w + 2))
+
+    alt_p = edge_pad(altitude)
+    prod_p = edge_pad(alt_sum.double()) * _RECIP_10  # sum * c, exact in float64
+    prod_c = prod_p[..., 1:h + 1, 1:w + 1]
+    tail = torch.arange(w, device=altitude.device) >= (8 * (w // 8) if w >= 16 else 0)
+    out = []
+    for di in (-1, 0, 1):
+        row_entries = []
+        for dj in (-1, 0, 1):
+            if di == 0 and dj == 0:
+                row_entries.append(torch.zeros_like(altitude))
+                continue
+            window = (..., slice(1 + di, 1 + di + h), slice(1 + dj, 1 + dj + w))
+            alt_n = alt_p[window]
+            if (di, dj) in _CENTRE_FUSED:
+                diff = rng._fma_f32(prod_c, -alt_n)
+            elif (di, dj) == _NEIGHBOUR_FUSED:
+                diff = rng._fma_f32(-prod_p[window], altitude)
+            elif (di, dj) == _TAIL_FUSED:
+                diff = torch.where(tail, rng._fma_f32(prod_c, -alt_n), altitude - alt_n)
+            else:
+                diff = altitude - alt_n
             if di != 0 and dj != 0:
                 diff = diff * _RECIP_1414  # / 1.414, folded as XLA folds it
             row_entries.append(torch.rad2deg(xla_atan(diff)))

@@ -1,9 +1,10 @@
 """The Advanced Bulldozer env of the port against the JAX package: terrain,
 extensions, and the env on both CA paths.
 
-The JAX terrain crosses to the port through ``gymca_torch.interop``, so the
-envs start from the same state; inputs and actions are made with numpy from
-a seed.  The env on the XLA path must match bit for bit.  On the fused path
+The port's env draws its own terrain from the JAX env's key, and it equals
+the JAX env's in every field, so the envs start from the same state; inputs
+and actions are made with numpy from a seed.  The env on the XLA path must
+match bit for bit.  On the fused path
 the JAX kernel runs in Pallas interpret mode (its PRNG a zero stub) and the
 port's kernel draws are replaced by zeros (monkeypatched here).  Terrain
 fields that go through transcendentals are compared bit for bit too: the
@@ -172,11 +173,10 @@ def test_apply_extensions_equals_jax(enabled):
 
 
 def port_env(jenv, **kw):
-    """The port's env on the CPU with the JAX env's terrain and settings."""
-    terrain = {k: (interop._bf16_from_numpy(np.asarray(v), "cpu") if k in BF16
-                   else torch.tensor(np.asarray(v))) for k, v in jenv._terrain_ctx.items()}
+    """The port's env on the CPU with the JAX env's key and settings: it
+    draws the same terrain from the key."""
     return TEnv(jenv.nrows, jenv.ncols, key=torch_key(jenv.starting_key),
-                num_envs=jenv.num_envs, terrain=terrain, device="cpu", **kw)
+                num_envs=jenv.num_envs, device="cpu", **kw)
 
 
 def assert_same(tag, t_step, j_step):
@@ -308,20 +308,58 @@ def test_modf_mode_equals_jax():
     run_both(jenv, tenv, 4, seed=2)
 
 
-def test_terrain_drawn_from_the_key_matches_jax(jenv32, record_property):
+# (H, W, envs, use_hidden): each case of terrain.bundle_slope's rule.  W % 8 == 0
+# (32, 128, 256: the 8-lane body only), W < 16 (13: the scalar loop only), a
+# remainder after 16 (23) and after 40 (42), and the uniform terrain.
+TERRAIN_CASES = [(32, 32, 4, True), (16, 128, 2, True), (12, 13, 2, True),
+                 (17, 23, 3, True), (12, 42, 2, True), (256, 256, 2, True),
+                 (16, 16, 2, False)]
+
+
+@pytest.mark.parametrize("case", TERRAIN_CASES, ids=lambda c: "x".join(map(str, c[:3]))
+                         + ("" if c[3] else "-uniform"))
+def test_terrain_drawn_from_the_key_matches_jax(case, request, record_property):
     """The port's own terrain bundle from the same key, every field bit for
-    bit (the count of exp_slope elements that differ is recorded: 0)."""
-    tenv = TEnv(32, 32, key=torch_key(jenv32.starting_key), num_envs=4, device="cpu")
-    mine, theirs = tenv._terrain_ctx, jenv32._terrain_ctx
+    bit, ``slope`` included (the counts of elements that differ are
+    recorded: 0).  The slope follows ``bundle_slope``'s rule, read from
+    jax 0.9.0's x86 CPU code; a gap in it alone points there first."""
+    h, w, n, use_hidden = case
+    jenv = (request.getfixturevalue("jenv32") if case == TERRAIN_CASES[0]
+            else JEnv(h, w, key=jax.random.key(h + w), num_envs=n, use_hidden=use_hidden))
+    tenv = TEnv(h, w, key=torch_key(jenv.starting_key), num_envs=n, device="cpu",
+                use_hidden=use_hidden)
+    mine, theirs = tenv._terrain_ctx, jenv._terrain_ctx
     assert set(mine) == set(TERRAIN_KEYS)
-    for k in ("density", "vegetation"):
-        np.testing.assert_array_equal(mine[k].numpy(), np.asarray(theirs[k]))
-    np.testing.assert_array_equal(bf16_ulps(mine["veg_den_factor"], theirs["veg_den_factor"]), 0)
-    np.testing.assert_array_equal(mine["altitude"].numpy(), np.asarray(theirs["altitude"]))
-    diff = bf16_ulps(mine["exp_slope"], theirs["exp_slope"])
-    record_property("exp_slope_elements_differing", int((diff > 0).sum()))
-    assert diff.max() == 0
+    differing = {k: int((bf16_ulps(mine[k], theirs[k]) if k in BF16
+                         else mine[k].numpy() != np.asarray(theirs[k])).astype(bool).sum())
+                 for k in TERRAIN_KEYS}
+    for k, count in differing.items():
+        record_property(f"{k}_elements_differing", count)
+    if use_hidden:
+        # the slope of the altitude alone, as jax.jit(get_slope) rounds it,
+        # is not the bundle's
+        plain = tterrain.get_slope(mine["altitude"]).numpy() != np.asarray(theirs["slope"])
+        record_property("get_slope_elements_differing", int(plain.sum()))
+    assert differing == dict.fromkeys(TERRAIN_KEYS, 0), (
+        f"{differing}: bundle_slope's rule is read from jax 0.9.0's x86 CPU code "
+        f"(jax {jax.__version__} here)")
     assert mine["exp_slope"].is_contiguous()
+    assert (mine["slope"].abs().sum() > 0) == use_hidden
+
+
+def test_explicit_terrain_is_the_envs():
+    """``terrain=`` replaces the draw: the env keeps the dict it is given and
+    its reset carries those fields."""
+    key = rng.key(0, device="cpu")
+    given = TEnv(16, 16, key=rng.key(1, device="cpu"), num_envs=2, device="cpu")._terrain_ctx
+    env = TEnv(16, 16, key=key, num_envs=2, device="cpu", terrain=given)
+    drawn = TEnv(16, 16, key=key, num_envs=2, device="cpu")._terrain_ctx
+    assert not torch.equal(drawn["altitude"], given["altitude"])
+    per_env = env.reset()[0][1]["per_env_context"]
+    for k in TERRAIN_KEYS:
+        assert torch.equal(env._terrain_ctx[k], given[k]), k
+        if k in per_env:
+            assert torch.equal(per_env[k], given[k]), k
 
 
 # --- the env, fused path --------------------------------------------------------------------

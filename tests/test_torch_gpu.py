@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from gymca_torch import rng
-from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+from gymca_torch.envs.advanced import TERRAIN_KEYS, AdvancedForestFireBulldozerEnv
 from gymca_torch.envs.bulldozer import BulldozerCore
 from gymca_torch.ops import alexandridis_kernel as ak
 from gymca_torch.ops import windy_kernel as wk
@@ -269,6 +269,30 @@ def test_advanced_env_defaults_to_the_card(cuda):
     assert env.device.type == "cuda" and env.use_fused_ca
     (rgb, _), _ = env.reset()
     assert rgb.device.type == "cuda"
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns, so that a comparison tells -0 from 0."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,n", [(17, 23, 3), (256, 256, 2)])
+def test_terrain_drawn_on_the_card_equals_the_cpus(cuda, h, w, n):
+    """The env built on the card from a card key draws its terrain there,
+    with nothing injected; every leaf equals the CPU's draw from the same
+    seed, bit for bit."""
+    gpu = AdvancedForestFireBulldozerEnv(h, w, key=rng.key(4), num_envs=n)
+    cpu = AdvancedForestFireBulldozerEnv(h, w, key=rng.key(4, device="cpu"), num_envs=n,
+                                         device="cpu")
+    assert gpu.starting_key.device.type == "cuda"
+    assert set(gpu._terrain_ctx) == set(TERRAIN_KEYS)
+    differing = {k: int((bits(v.cpu()) != bits(cpu._terrain_ctx[k])).sum())
+                 for k, v in gpu._terrain_ctx.items()}
+    assert differing == dict.fromkeys(TERRAIN_KEYS, 0)
+    assert all(v.device.type == "cuda" for v in gpu._terrain_ctx.values())
 
 
 # --- the probes -----------------------------------------------------------------------------

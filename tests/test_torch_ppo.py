@@ -61,11 +61,10 @@ def torch_key(jkey):
 
 
 def port_env(jenv):
-    """The port's env on the CPU with the JAX env's terrain and settings."""
-    terrain = {k: (interop._bf16_from_numpy(np.asarray(v), "cpu") if k in BF16
-                   else torch.tensor(np.asarray(v))) for k, v in jenv._terrain_ctx.items()}
+    """The port's env on the CPU with the JAX env's key and settings: it
+    draws the same terrain from the key."""
     return TEnv(jenv.nrows, jenv.ncols, key=torch_key(jenv.starting_key),
-                num_envs=jenv.num_envs, terrain=terrain, device="cpu")
+                num_envs=jenv.num_envs, device="cpu")
 
 
 def leaves(tree):

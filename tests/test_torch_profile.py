@@ -252,20 +252,11 @@ def test_bench_advanced_runs_both_paths_on_the_cpu(capsys):
 # --- profile_advanced ---------------------------------------------------------------------
 
 
-def jax_terrain(jenv):
-    """The JAX env's terrain as the port's tensors.  The port's own terrain
-    from the same key differs from it in the ``slope`` field (the last bits
-    of some elements; ``exp_slope``, which the CA reads, is equal), so envs
-    compared leaf for leaf take the JAX env's."""
-    return {k: (interop._bf16_from_numpy(np.asarray(v), "cpu") if k in BF16
-                else torch.tensor(np.asarray(v))) for k, v in jenv._terrain_ctx.items()}
-
-
 def port_env(jenv, **kw):
-    """The port's env on the CPU with the JAX env's terrain and settings."""
+    """The port's env on the CPU with the JAX env's key and settings: it
+    draws the same terrain from the key."""
     key = torch.tensor(np.asarray(jax.random.key_data(jenv.starting_key)).astype(np.int64))
-    return TEnv(jenv.nrows, jenv.ncols, key=key, num_envs=jenv.num_envs,
-                terrain=jax_terrain(jenv), device="cpu", **kw)
+    return TEnv(jenv.nrows, jenv.ncols, key=key, num_envs=jenv.num_envs, device="cpu", **kw)
 
 
 @pytest.fixture
@@ -316,7 +307,6 @@ def adv32():
     same terrain from the key), with their resets."""
     jenv = JEnv(32, 32, key=jax.random.key(0), num_envs=4)
     tenv = exp_advanced_split.make_env(32, 4, device="cpu")
-    tenv._terrain_ctx = jax_terrain(jenv)
     return jenv, jenv.reset(), tenv, tenv.reset()
 
 
@@ -389,7 +379,6 @@ def test_step_no_obs_equals_the_scripts_stubbed_env():
     RGB is zero and everything else as the real step; the stub's reset too."""
     jenv = script("exp_advanced_split").make_env(32, 4, obs_stub=True)
     tenv = exp_advanced_split.make_env(32, 4, obs_stub=True, device="cpu")
-    tenv._terrain_ctx = jax_terrain(jenv)
     jobs, jinfo = jenv.reset()
     tobs, tinfo = tenv.reset()
     last = run_steps(jenv, jobs, jinfo, tenv, tobs, tinfo, 3)
@@ -418,7 +407,6 @@ def test_step_no_ca_equals_the_scripts_stub_and_launches_no_kernel(monkeypatch):
     assert jenv.use_pallas_ca
     with exp_advanced_split.ca_stubbed():
         tenv = exp_advanced_split.make_env(128, 2, device="cpu", use_fused_ca=True)
-        tenv._terrain_ctx = jax_terrain(jenv)
         assert tenv.use_fused_ca
         jobs, jinfo = jenv.reset()
         tobs, tinfo = tenv.reset()

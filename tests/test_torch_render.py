@@ -31,7 +31,6 @@ from gymca_tpu.envs.helicopter import ForestFireHelicopterEnv as JHelicopter  # 
 from gymca_tpu.utils import render as j_render  # noqa: E402
 
 ADV_ENVS, ADV_SIZE = 2, 16
-BF16 = ("exp_slope", "veg_den_factor")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,13 +81,11 @@ def test_env_render_matches_jax(env_cls, jax_cls, shape, actions):
 
 @pytest.fixture(scope="module")
 def advanced_pair():
-    """(JAX env, port env): same terrain, same starting key, XLA path."""
+    """(JAX env, port env): same starting key, so the same terrain, XLA path."""
     jenv = JAdvanced(ADV_SIZE, ADV_SIZE, key=jax.random.key(0), num_envs=ADV_ENVS)
-    terrain = {k: (interop._bf16_from_numpy(np.asarray(v), "cpu") if k in BF16
-                   else torch.tensor(np.asarray(v))) for k, v in jenv._terrain_ctx.items()}
     key = torch.tensor(np.asarray(jax.random.key_data(jenv.starting_key)).astype(np.int64))
-    tenv = TAdvanced(ADV_SIZE, ADV_SIZE, key=key, num_envs=ADV_ENVS, terrain=terrain,
-                     use_fused_ca=False, device="cpu")
+    tenv = TAdvanced(ADV_SIZE, ADV_SIZE, key=key, num_envs=ADV_ENVS, use_fused_ca=False,
+                     device="cpu")
     return jenv, tenv
 
 
