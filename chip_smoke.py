@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths, nine of them carried by kernels written by hand in CUDA:
+Thirteen paths, ten of them carried by kernels written by hand in CUDA:
 
 * slice 1: ``BulldozerCore(256, 256).step_batched`` over 4096 envs (256 MiB
   of int8 grid), carried by K1 (``gymca_torch/csrc/windy_sparse.cu``);
@@ -35,7 +35,10 @@ Twelve paths, nine of them carried by kernels written by hand in CUDA:
   carried by K1; ``bench_advanced``, ``profile_advanced``,
   ``exp_advanced_split``, ``validate_fused_ca`` and ``exp_policy_ceiling``,
   carried by the Alexandridis kernel; ``update_gallery`` and
-  ``versionate``).
+  ``versionate``);
+* slice 11: ``bench.py`` as ``gymca_torch.bench``, whose two measurements
+  (4096 windy envs and 64 Advanced envs at 256²) are carried by K1 and the
+  Alexandridis kernel.
 
 Phases, each fatal on failure:
 
@@ -64,12 +67,12 @@ Phases, each fatal on failure:
    a CUDA ``torch.Generator`` under ``torch.cuda.set_sync_debug_mode("error")``,
    the launch counters zeroed before and read after; then ``step_batched``
    against the eager batched step ``step`` on 64 envs, bit for bit, and K1
-   against its plain version on inputs recorded from the main path; then its
-   times (below);
-7. slice 2's main path: reset 64 envs at 256² and run 200 steps of
+   against its plain version on inputs recorded from the main path; then
+   ``[bench]`` (7b, below); then its times (below);
+7. slice 2's main path: reset 64 envs at 256² and run 100 steps of
    ``stateless_step`` + ``conditional_reset`` with random (move, shoot, 0)
    actions under the same sync-error mode, the counters zeroed before and
-   read after (200 Alexandridis launches); the terrain that env drew on
+   read after (100 Alexandridis launches); the terrain that env drew on
    the card from a card key, and one drawn there at 17 x 23 x 3 (a scalar
    remainder in the JAX bundle's slope loops), against the CPU's draw from
    the same seed, nothing injected, every leaf bit for bit (the count of
@@ -82,7 +85,7 @@ Phases, each fatal on failure:
    (``use_fused_ca=False``): mean fire and burned counts and mean fire age
    at checkpoints inside a 4-sigma band of the cross-env noise; then its
    times.  Times, for each path, beside the card's name and power limit:
-   env-steps/s; the kernel's device time per launch from the profiler's
+   env-steps/s (``[bench]``'s); the kernel's device time per launch from the profiler's
    kernel events beside its bound for the bytes and operations of those
    inputs (and, for the Alexandridis kernel, its dense bound, every cell a
    candidate), on several input sets: K1 on the recorded main-path
@@ -93,6 +96,17 @@ Phases, each fatal on failure:
    synthetic at 8 x 512²; the plain
    versions; the host time of parts of the step; and a profiler trace of
    the step (device kernels per step, idle share, time by kernel);
+7b. slice 11, ``[bench]``: ``gymca_torch.bench``'s ``measure_windy`` at
+   4096 x 256² and ``measure_advanced`` at 64 x 256² (the fused kernel), each
+   at 200 steps a run (bench.py's 1000 cut), the best of 3 after 2 untimed,
+   every run from the same reset states with its actions drawn before its
+   clock and its steps under ``set_sync_debug_mode("error")``: env-steps/s,
+   each rep, the done fraction and the draws' seconds; exactly 5 x 200
+   launches of the path's kernel and none of the other (the counters zeroed
+   before and read after), reward sums in [-envs, 0], and the kernel's
+   inputs at 3 launches of the untimed runs held against its plain version
+   (tolerance 0).  Every later line that quotes the windy or Advanced
+   env-steps/s quotes these;
 8. slice 3: the four windy-CA formulations against their plain versions step
    by step and against each other (tolerance 0) over 40 steps at (256, 256,
    256), 3 at (4096, 256, 256), 5 at (2, 512, 512) and 10 at (8, 64, 128),
@@ -121,8 +135,8 @@ Phases, each fatal on failure:
 9. slice 5, ``[train]``: (a) ``scripts/run``'s defaults through
    ``gymca_torch.run``'s ``parse_args`` and ``build_env`` (8 envs at 256²,
    ``single`` mode, uint8 obs, the fused kernel, the full-width network):
-   ``train()`` for 2 iterations of 128 steps, 4 epochs of 4 minibatches,
-   the launch counters zeroed before and read after (2 x 128 Alexandridis
+   ``train()`` for 1 iteration of 128 steps, 4 epochs of 4 minibatches,
+   the launch counters zeroed before and read after (1 x 128 Alexandridis
    launches), the kernel's inputs recorded at the first and last launch of
    each iteration and each held against its plain version (tolerance 0),
    finite metrics, params moved; then one more iteration split
@@ -142,7 +156,7 @@ Phases, each fatal on failure:
    deterministic algorithms); then at (b)'s size, float32 defaults and (b)'s
    flags, reported;
 10. slice 7, ``[helicopter]``: ``HelicopterCore(42, 42)``, the registered
-    size, at 4096 envs for 200 ``autoreset_step``s with random actions under
+    size, at 4096 envs for 50 ``autoreset_step``s with random actions under
     ``set_sync_debug_mode("error")`` (best of 3 for env-steps/s), then 256
     envs at 256² for 50 steps: cells in {0, 1, 2}, finite rewards in [-1,
     1], never done; the card against the CPU, every leaf bit for bit, at 64
@@ -151,7 +165,7 @@ Phases, each fatal on failure:
     the JAX package's is plain XLA: no hand-written kernel on this path;
 11. slice 7, ``[eval]``: ``gymca_torch.run``'s evaluation loop
     (``eval_loop``) at ``scripts/run``'s defaults (8 envs at 256², ``single``
-    mode, the fused kernel), 200 steps each with the random, scripted and
+    mode, the fused kernel), 50 steps each with the random, scripted and
     params actors (the params actor restores ``[train]``'s trained agent
     state, saved with the port's ``CheckpointManager``, through
     ``load_actor``), each under ``set_sync_debug_mode("error")`` with K2's
@@ -161,7 +175,7 @@ Phases, each fatal on failure:
     random actor's loop.  Nothing is rendered (the card's machine has no
     matplotlib);
 12. slice 8, ``[pinecones]``: the Advanced env with ``enable_pinecones`` at
-    64 envs x 256² (the XLA-path counterpart: no Alexandridis launch) for 20
+    64 envs x 256² (the XLA-path counterpart: no Alexandridis launch) for 10
     steps from a reset under ``set_sync_debug_mode("error")``: ms a step,
     and a profiler trace (device kernels a step, idle share); then the card
     against the CPU, every leaf bit for bit, at 4 envs x 64² for 30 steps
@@ -171,25 +185,25 @@ Phases, each fatal on failure:
 13. slice 8, ``[legacy]``: ``AlexandridisCA.sequential_prototype`` at 32² for
     3 passes from a Generator seed, on the host (the card's machine has no
     JAX): twice, equal, cells in {0, 1, 2}, some changed;
-14. slice 8, ``[curve]``: ``gymca_torch.train_curve`` at 32 envs x 256², 2
-    iterations, ``--pallas-ca --bf16``, artifacts in a temporary directory:
-    2 x 128 Alexandridis launches, the kernel's inputs at the first and last
+14. slice 8, ``[curve]``: ``gymca_torch.train_curve`` at 32 envs x 256², 1
+    iteration, ``--pallas-ca --bf16``, artifacts in a temporary directory:
+    1 x 128 Alexandridis launches, the kernel's inputs at the first and last
     launch of each iteration held against its plain version (tolerance 0),
     finite metrics, the JSON's ``hardware`` naming the card; then round 5's
     recipe flags, cut (modf: the XLA-path counterpart, no launch), and the
     same with ``--pallas-ca``, which must warn and fall back;
 15. slice 8, ``[policy]``: ``gymca_torch.eval_policy`` on ``[curve]``'s blob,
-    16 envs, 100 steps, ``--probes``, each episode loop under
-    ``set_sync_debug_mode("error")``: exactly 400 Alexandridis launches, the
+    16 envs, 25 steps, ``--probes``, each episode loop under
+    ``set_sync_debug_mode("error")``: exactly 4 x 25 Alexandridis launches, the
     kernel held against its plain version at each policy's first and last
-    launch (tolerance 0), steps/s per policy; then the modf blob at 50 steps
+    launch (tolerance 0), steps/s per policy; then the modf blob at 10 steps
     with no launch;
 16. slice 9, ``[parallel]``, after every other phase, so that none of them
     sees a process group, its parts run in the order (a), (c), (d), (b):
     (a) ``initialize_distributed`` brings up a world
     of one rank on NCCL (a free local port, ``cuda:0``), which must report
     ``nccl``, destroyed at the phase's end; (b) ``DataParallelPPO`` at
-    ``[train]``'s cell (``scripts/run``'s defaults), ``train(2)``: 256
+    ``[train]``'s cell (``scripts/run``'s defaults), ``train(1)``: 128
     Alexandridis launches, the kernel's inputs at each iteration's first and
     last launch held against its plain version (tolerance 0), 16 gradient
     all-reduces an iteration and one of the metrics, finite metrics, params
@@ -200,14 +214,14 @@ Phases, each fatal on failure:
     1e-4, atol 1e-5 of the first trainer's (bit for bit reported), the last
     three timed back to back; (c) under
     ``set_sync_debug_mode("error")``: ``bulldozer_step_spatial`` on one
-    16384² int8 grid for 20 steps and ``bulldozer_step_batched_spatial`` on
-    a (1, 1) mesh at 4096 x 256² for 20 steps, each leaf for leaf equal to
+    16384² int8 grid for 10 steps and ``bulldozer_step_batched_spatial`` on
+    a (1, 1) mesh at 4096 x 256² for 10 steps, each leaf for leaf equal to
     ``BulldozerCore.step``; ``advanced_step_spatial`` on one 4096² grid for
-    10 steps (cells in {0, 1, 2}, rewards in [-1, 0], fire burning; ms a
+    5 steps (cells in {0, 1, 2}, rewards in [-1, 0], fire burning; ms a
     step); ``advanced_step_batched_spatial`` at 64 x 256² on a (1, 1) mesh
     equal to 4 of its envs stepped alone, for 3 steps; the card against the
     CPU (a gloo mesh beside NCCL's) for ``advanced_step_spatial`` at 256² for
-    5 steps; (d) ``bench_scaling`` at d = 1, 4096 x 256², 200 steps a run,
+    5 steps; (d) ``bench_scaling`` at d = 1, 4096 x 256², 100 steps a run,
     the best of 3 after 2 untimed: 1,000 K1 launches, env-steps/s beside
     ``[time]``'s best;
 17. slice 10, ``[tools]``, in a process of its own, the entry points of
@@ -224,14 +238,18 @@ Phases, each fatal on failure:
     Alexandridis kernel (its first launch in each, in the env and alone,
     recorded); every recorded launch held against the kernel's plain
     version (tolerance 0); fails if a path launched its kernel no time, if
+    a part it traced has no device reading (the profiler kept too few kernel
+    events in each of its sessions), if
     exp_advanced_split's CA-stubbed variant launched it at all or left its
     stub in place, or if validate_fused_ca prints FAIL; then
     ``gymca_torch.update_gallery`` into a temporary directory where
     gymnasium and matplotlib are installed (said so where not) and
     ``gymca_torch.versionate --dry-run``;
-18. one JSON line describing every kernel, one per path (the Alexandridis
+18. a ``[phases]`` line, each phase's seconds and the total; one JSON line
+    describing every kernel, one per path (the Alexandridis
     kernel's and K1's with their launches and their errors on each path),
-    then ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
+    then ``{"step": ...}``, ``{"advanced_step": ...}``, ``{"bench": ...}``,
+    ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
     ``{"pinecones": ...}``, ``{"legacy": ...}``, ``{"curve": ...}``,
     ``{"policy": ...}``, ``{"parallel": ...}`` and ``{"tools": ...}``;
 19. the ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
@@ -257,13 +275,19 @@ HERE = Path(__file__).resolve().parent
 N_ENVS, H, W = 4096, 256, 256
 SEED = 0
 MAIN_STEPS = 200
+# The bench's runs (bench.py: 1000 steps, cut here to the main path's 200).
+BENCH_STEPS = MAIN_STEPS
 PARITY_ENVS, PARITY_STEPS = 64, 100
 TIMING_REPS = 3
-PROFILE_STEPS = 10
+# Steps a trace of a step reads (the windy, Advanced, Helicopter and
+# evaluation steps): reading a trace back costs seconds per 10,000 kernel
+# events, and those steps launch 800-4,300 kernels each.
+PROFILE_STEPS = 3
 RECORDED_LAUNCHES = 10
 KERNEL_REPEATS = 10  # passes over the recorded launches when timing a kernel
-# Slice 2: the Advanced env (bench.py:143-195 runs 1000 steps, cut here to 200).
-ADV_ENVS, ADV_SIZE, ADV_STEPS = 64, 256, 200
+# Slice 2: the Advanced env (bench.py:143-195 runs 1000 steps, cut here to
+# 100; [bench] runs this cell at 200).
+ADV_ENVS, ADV_SIZE, ADV_STEPS = 64, 256, 100
 ADV_PARITY_ENVS, ADV_PARITY_SIZE, ADV_PARITY_STEPS = 4, 64, 20
 TERRAIN_ODD_SHAPE = (17, 23, 3)  # (H, W, envs): a width with a scalar remainder
 K3_ENVS, K3_SIZE, K3_STEPS = 8, 512, 20
@@ -283,12 +307,12 @@ S4_BIG_ENVS = 4096
 # a copy of one 16 KiB chunk (and, beside S3, a copy moving S3's bytes).
 S3_STREAM_ENVS = 65536
 S3_COPY_BYTES, S3_COPY_SMALL = 1536 * 1024, 16 * 1024
-# Slice 5: the trainer.  (a) scripts/run's defaults (scripts/run:42-127), 2
-# iterations; (b) round 5's pipeline flags (scripts/sweep_r5_kickstart256.sh)
+# Slice 5: the trainer.  (a) scripts/run's defaults (scripts/run:42-127), 1
+# iteration; (b) round 5's pipeline flags (scripts/sweep_r5_kickstart256.sh)
 # at single mode, cut from 32 envs x 128 steps x 1500 iterations (300 BC,
 # 150 warmup) to 8 envs x 16 steps x 3 iterations (1 BC, 1 warmup).
 TRAIN_ARGV = ["-n", "8", "-z", "256"]
-TRAIN_ITERS, TRAIN_PROFILE_STEPS, TRAIN_SPLIT_STEPS = 2, 4, 8
+TRAIN_ITERS, TRAIN_PROFILE_STEPS, TRAIN_SPLIT_STEPS = 1, 2, 8
 PIPELINE_ARGV = TRAIN_ARGV + ["--num-ppo-steps", "16", "--bf16", "--centroid-features",
                               "--shape-tree-coef", "20", "--shape-dist-coef", "2",
                               "--shape-douse-coef", "20", "--bc-iters", "1",
@@ -298,57 +322,58 @@ PIPELINE_ITERS = 3
 # 15-24, 42²), 4096 envs, and 256 envs at 256²; card against CPU over more
 # than three freeze cycles (the CA every 22 steps at 42²).  The evaluation
 # at scripts/run's defaults (scripts/run:312-410: 8 envs at 256², single
-# mode, the fused kernel), cut from 10,000 steps to 200 per actor.
-HELI_SIZE, HELI_ENVS, HELI_STEPS = (42, 42), 4096, 200
+# mode, the fused kernel), cut from 10,000 steps to 50 per actor.
+HELI_SIZE, HELI_ENVS, HELI_STEPS = (42, 42), 4096, 50
 HELI_BIG_SIZE, HELI_BIG_ENVS, HELI_BIG_STEPS = (256, 256), 256, 50
 HELI_PARITY_ENVS, HELI_PARITY_STEPS = 64, 70
-EVAL_ARGV = ["-n", "8", "-z", "256", "--no-train", "--steps", "200"]
+EVAL_ARGV = ["-n", "8", "-z", "256", "--no-train", "--steps", "50"]
 # Slice 8.  Pinecones: the Advanced env at the bench's cell (bench.py:143-195,
-# 64 x 256²) with enable_pinecones, 20 steps from a reset; card against CPU at
+# 64 x 256²) with enable_pinecones, 10 steps from a reset; card against CPU at
 # 4 envs x 64² for 30 steps from a burning block.  The curve:
 # scripts/train_curve.py's defaults at 256² (32 envs, 128 steps an iteration)
-# with --pallas-ca --bf16, cut from 800 iterations to 2; round 5's recipe
+# with --pallas-ca --bf16, cut from 800 iterations to 1; round 5's recipe
 # (scripts/sweep_r5_kickstart256.sh:12-16) cut from 32 envs x 1500
 # iterations (300 BC, 150 warmup, decay 900) to 8 envs x 2 iterations in two
 # stages (1 BC, 1 warmup, decay 2).  The policy evaluation (the same
-# script's :25-27, 16 envs) cut from 20,000 steps to 100 (50 for the modf
+# script's :25-27, 16 envs) cut from 20,000 steps to 25 (10 for the modf
 # blob).
-PINE_ENVS, PINE_SIZE, PINE_STEPS, PINE_PROFILE_STEPS = 64, 256, 20, 3
+PINE_ENVS, PINE_SIZE, PINE_STEPS, PINE_PROFILE_STEPS = 64, 256, 10, 1
 PINE_PARITY_ENVS, PINE_PARITY_SIZE, PINE_PARITY_STEPS = 4, 64, 30
 LEGACY_SIZE, LEGACY_PASSES = 32, 3
-CURVE_ARGV = ["--size", "256", "--num-envs", "32", "--iters", "2", "--pallas-ca", "--bf16"]
+CURVE_ITERS = 1
+CURVE_ARGV = ["--size", "256", "--num-envs", "32", "--iters", str(CURVE_ITERS), "--pallas-ca",
+              "--bf16"]
 CURVE_STEPS = 128  # scripts/train_curve.py's steps an iteration
 RECIPE_ARGV = ["--size", "256", "--num-envs", "8", "--iters", "2", "--bf16",
                "--ca-repeat-mode", "modf", "--gamma", "0.999", "--shape-tree-coef", "20",
                "--shape-dist-coef", "2", "--shape-douse-coef", "20", "--centroid-features",
                "--bc-iters", "1", "--critic-warmup-iters", "1", "--kickstart-coef", "1.0",
                "--kickstart-decay", "2", "--sm-schedule", "2:0.5,1:0.5"]
-POLICY_ENVS, POLICY_STEPS, POLICY_MODF_STEPS = 16, 100, 50
+POLICY_ENVS, POLICY_STEPS, POLICY_MODF_STEPS = 16, 25, 10
 POLICIES = ("trained-greedy", "idle", "random", "greedy-fire")
 # Slice 9: parallel/ on a world of one rank (NCCL holds one rank per card).
-# (b) the [train] cell through DataParallelPPO, 2 iterations; (c) the spatial
+# (b) the [train] cell through DataParallelPPO, 1 iteration; (c) the spatial
 # steps: the windy cell's 268 M cells (4096 x 256²) as one 16384² grid and as
-# 4096 envs on a (1, 1) mesh, 20 steps each; the Advanced physics on one
-# 4096² grid for 10 steps, at the Advanced cell's 64 x 256² on a (1, 1) mesh
+# 4096 envs on a (1, 1) mesh, 10 steps each; the Advanced physics on one
+# 4096² grid for 5 steps, at the Advanced cell's 64 x 256² on a (1, 1) mesh
 # against 4 envs stepped alone (3 steps), card against CPU at 256² (5 steps);
 # (d) bench_scaling at its defaults (scripts/bench_scaling.py:107-109, 4096 x
-# 256²), runs of 200 of its 1000 steps.
-PAR_ITERS = 2
-SPATIAL_BIG, SPATIAL_BIG_STEPS, SPATIAL_BATCH_STEPS = 16384, 20, 20
-ADV_SPATIAL_SIZE, ADV_SPATIAL_STEPS = 4096, 10
+# 256²), runs of 100 of its 1000 steps.
+PAR_ITERS = 1
+SPATIAL_BIG, SPATIAL_BIG_STEPS, SPATIAL_BATCH_STEPS = 16384, 10, 10
+ADV_SPATIAL_SIZE, ADV_SPATIAL_STEPS = 4096, 5
 ADV_BATCH_CHECK_ENVS, ADV_BATCH_CHECK_STEPS, ADV_CPU_STEPS = 4, 3, 5
-SCALING_STEPS = 200
+SCALING_STEPS = 100
 # Slice 10: the tools of scripts/ as the port's entry points, at their
 # default cells with their steps cut (each part's trace reads at most 10
-# steps of a step, all of a kernel alone; a trace of 20 Advanced steps took
-# the phase past 4 minutes): profile_step and exp_split at 4096 x 256²
-# (1000 steps each -> 50),
-# bench_advanced and profile_advanced at 8 x 256² (1000 -> 10),
-# exp_advanced_split at 64 x 256² (1000 -> 5), validate_fused_ca at 64 x
-# 256² (500 -> 200: checkpoints t = 100, 200), exp_policy_ceiling at 8 x
-# 256² (6000 -> 50).
-TOOLS_WINDY_STEPS, TOOLS_ADV_STEPS, TOOLS_SPLIT_STEPS = 50, 10, 5
-TOOLS_VALIDATE_STEPS, TOOLS_POLICY_STEPS = 200, 50
+# steps of a step, all of a kernel alone, and most of the phase's time goes
+# to reading traces back): profile_step and exp_split at 4096 x 256²
+# (1000 steps each -> 3), bench_advanced and profile_advanced at 8 x 256²
+# (1000 -> 3), exp_advanced_split at 64 x 256² (1000 -> 2),
+# validate_fused_ca at 64 x 256² (500 -> 100: checkpoint t = 100),
+# exp_policy_ceiling at 8 x 256² (6000 -> 20).
+TOOLS_WINDY_STEPS, TOOLS_ADV_STEPS, TOOLS_SPLIT_STEPS = 3, 3, 2
+TOOLS_VALIDATE_STEPS, TOOLS_POLICY_STEPS = 100, 20
 # The default Alexandridis instance's ptxas line (the step, vector form):
 # 64 registers, the cap its launch bounds set, and one barrier.
 ALEXANDRIDIS_PTXAS = "Used 64 registers, used 1 barriers"
@@ -949,7 +974,7 @@ def train_phase(card):
         return (state or tr.agent_state, EpisodeStatistics.create(n), obs,
                 torch.zeros(n, dtype=torch.bool, device="cuda"), info, tr.key)
 
-    # (a) scripts/run's defaults: train() for 2 iterations
+    # (a) scripts/run's defaults: train() for TRAIN_ITERS iterations
     tr, args = trainer_for(TRAIN_ARGV)
     steps = args.exp.num_ppo_steps
     log(f"[train] (a) scripts/run defaults: {args.env.num_envs} envs at {args.env.size}², "
@@ -965,7 +990,7 @@ def train_phase(card):
     for c in counters:
         c.launches = 0
     # the kernel's inputs at the first and last launch of each iteration
-    keep = {0, steps - 1, steps, TRAIN_ITERS * steps - 1}
+    keep = {i * steps + j for i in range(TRAIN_ITERS) for j in (0, steps - 1)}
     t0 = time.perf_counter()
     with ki.alexandridis_recorder(keep) as train_recorded:
         state, history = tr.train(num_iterations=TRAIN_ITERS)
@@ -1598,7 +1623,7 @@ def curve_phase(card, out):
     t_phase = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     blob = out / "curve.pkl"
-    keep = {0, CURVE_STEPS - 1, CURVE_STEPS, 2 * CURVE_STEPS - 1}
+    keep = {i * CURVE_STEPS + j for i in range(CURVE_ITERS) for j in (0, CURVE_STEPS - 1)}
     torch.cuda.synchronize()
     alexandridis_fused_step.launches = 0
     with ki.alexandridis_recorder(keep) as recorded:
@@ -1615,8 +1640,9 @@ def curve_phase(card, out):
         f"{result['hardware']!r}; last metrics {json.dumps(history[-1])}")
     log(f"[kernel] alexandridis on the curve's inputs ({len(recorded)} launches recorded, the "
         f"first and last of each iteration): max_abs_err {err} (tolerance 0, grid and age)")
-    if launches != 2 * CURVE_STEPS:
-        fail(f"expected {2 * CURVE_STEPS} alexandridis launches on the curve, got {launches}")
+    if launches != CURVE_ITERS * CURVE_STEPS:
+        fail(f"expected {CURVE_ITERS * CURVE_STEPS} alexandridis launches on the curve, got "
+             f"{launches}")
     if len(recorded) != len(keep) or err != 0:
         fail("alexandridis disagrees with its plain version on the curve's inputs")
     if not result["hardware"].startswith(name):
@@ -1759,7 +1785,7 @@ def parallel_ppo(card, train_sps):
     counters = (alexandridis_fused_step, windy_fused_step)
     for c in counters:
         c.launches = 0
-    keep = {0, steps - 1, steps, PAR_ITERS * steps - 1}
+    keep = {i * steps + j for i in range(PAR_ITERS) for j in (0, steps - 1)}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with ki.alexandridis_recorder(keep) as recorded:
@@ -2023,7 +2049,7 @@ def parallel_spatial(card, gen):
     return out
 
 
-def parallel_phase(card, gen, train_sps, time_best):
+def parallel_phase(card, gen, train_sps, bench_best):
     """``[parallel]`` (module docstring, phase 16)."""
     import socket
 
@@ -2056,12 +2082,12 @@ def parallel_phase(card, gen, train_sps, time_best):
         runs = bench_scaling.WARMUP + bench_scaling.REPS
         log(f"[parallel] (d) [{card}] bench_scaling d=1, {a.envs_per_device} x {a.size}², "
             f"{a.steps} steps, best of {bench_scaling.REPS} after {bench_scaling.WARMUP} "
-            f"untimed: {rec['steps_per_sec']} env-steps/s ([time] best of {TIMING_REPS}: "
-            f"{time_best}), efficiency {rec['efficiency']}; {k1} windy launches")
+            f"untimed: {rec['steps_per_sec']} env-steps/s ([bench] best of 3: "
+            f"{bench_best}), efficiency {rec['efficiency']}; {k1} windy launches")
         if k1 != runs * SCALING_STEPS or rec["devices"] != 1:
             fail(f"expected {runs * SCALING_STEPS} windy launches from bench_scaling, got {k1}")
         out.update(scaling_steps_per_s=rec["steps_per_sec"], scaling_windy_launches=k1,
-                   time_best_steps_per_s=time_best)
+                   bench_best_steps_per_s=bench_best)
         log(f"[parallel] (d) done at {time.perf_counter() - t_phase:.1f}s")
         out.update(parallel_ppo(card, train_sps))
     finally:
@@ -2186,6 +2212,12 @@ def tools_phase(card):
             if c["windy" if name in ("profile_step", "exp_split") else "alexandridis"] == 0]
     if zero:
         fail(f"no kernel launch on the paths of {zero}")
+    unread = [f"{name}: {part}" for name in launches for part, busy in device_readings(out[name])
+              if busy is None]
+    log(f"[tools] device readings: {sum(1 for n in launches for _ in device_readings(out[n]))} "
+        f"parts traced, {len(unread)} without device time")
+    if unread:
+        fail(f"the profiler read no device time, in every session, for {unread}")
     k1_err = max(kernel_vs_plain(a)[0] for a, _ in k1_recorded)
     k2_err = max(alexandridis_vs_plain(x, kw)[0] for (x, kw), _ in k2_recorded)
     log(f"[kernel] windy_sparse on the tools' inputs ({len(k1_recorded)} launches recorded: "
@@ -2217,6 +2249,23 @@ def tools_phase(card):
     return out
 
 
+def device_readings(result):
+    """``(part, device busy µs a step)`` of every part a tool's result
+    traced: its parts' ``busy_us_per_step`` (None where the profiler read no
+    device time) and ``exp_advanced_split``'s ``<variant>_device_busy_us``."""
+    if isinstance(result, dict) and "busy_us_per_step" in result:
+        yield "", result["busy_us_per_step"]
+    elif isinstance(result, dict):
+        for k, v in result.items():
+            if k.endswith("_device_busy_us"):
+                yield k[:-len("_device_busy_us")], v
+            else:
+                yield from ((f"{k}/{p}".rstrip("/"), b) for p, b in device_readings(v))
+    elif isinstance(result, list):
+        for i, v in enumerate(result):
+            yield from ((f"{i}/{p}".rstrip("/"), b) for p, b in device_readings(v))
+
+
 def tools_process():
     """``[tools]`` in a process of its own (``python3 chip_smoke.py --tools
     OUT``), its result read back from ``OUT``: on the H100, after the other
@@ -2245,10 +2294,65 @@ def tools_main(result_path) -> int:
     return 0
 
 
+def bench_phase(card):
+    """``[bench]`` (module docstring, phase 7b): ``gymca_torch.bench``'s two
+    measurements at full width and the smoke's depth."""
+    import gymca_torch.envs.bulldozer as bulldozer
+    from gymca_torch import bench
+    from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
+    from gymca_torch.ops.windy_kernel import windy_fused_step
+
+    t_phase = time.perf_counter()
+    runs = bench.WARM + bench.REPS
+    # Recorded in the untimed runs: the first run's first and last launch,
+    # the second run's last.
+    keep = {0, BENCH_STEPS - 1, 2 * BENCH_STEPS - 1}
+    out = {"card": card}
+    for kernel, measure, size, envs, recorder in (
+            ("windy", bench.measure_windy, H, N_ENVS,
+             lambda: ki.launch_recorder(bulldozer, "windy_fused_step", keep)),
+            ("alexandridis", bench.measure_advanced, ADV_SIZE, ADV_ENVS,
+             lambda: ki.alexandridis_recorder(keep))):
+        windy_fused_step.launches = alexandridis_fused_step.launches = 0
+        with recorder() as recorded:
+            m = measure(size, envs, BENCH_STEPS, "cuda")
+        launched = {"windy": windy_fused_step.launches,
+                    "alexandridis": alexandridis_fused_step.launches}
+        sums = torch.stack([r["reward_sums"] for r in m["runs"]])
+        rates = [envs * BENCH_STEPS / r["seconds"] for r in m["runs"][bench.WARM:]]
+        log(f"[bench] [{card}] {envs} x {size}x{size} ({m['path']}), {BENCH_STEPS} steps a "
+            f"run, best of {bench.REPS} after {bench.WARM} untimed: {m['value']} env-steps/s; "
+            f"reps {rates} env-steps/s; done fraction {m['done_fraction']}; draws outside the "
+            f"clock {[r['draw_seconds'] for r in m['runs']]} s; launches {launched}")
+        if launched[kernel] != runs * BENCH_STEPS or sum(launched.values()) != launched[kernel]:
+            fail(f"[bench] expected {runs * BENCH_STEPS} {kernel} launches and no other, got "
+                 f"{launched}")
+        if not torch.isfinite(sums).all() or (sums > 0).any() or (sums < -envs).any():
+            fail(f"[bench] {kernel} path: reward sums outside [-{envs}, 0]")
+        if kernel == "windy":
+            err = max(kernel_vs_plain(args)[0] for args, _ in recorded)
+        else:
+            err = max(alexandridis_vs_plain(x, kw)[0] for x, kw in recorded)
+        log(f"[kernel] {kernel} on the bench's inputs ({len(recorded)} launches recorded, at "
+            f"{sorted(keep)}): max_abs_err {err} (tolerance 0)")
+        if len(recorded) != len(keep) or err != 0:
+            fail(f"[bench] {kernel} disagrees with its plain version on the bench's inputs")
+        out["windy" if kernel == "windy" else "advanced"] = {
+            "envs": envs, "size": size, "steps": BENCH_STEPS, "path": m["path"],
+            "value": m["value"], "reps_env_steps_per_s": rates,
+            "done_fraction": m["done_fraction"],
+            "draw_seconds": [r["draw_seconds"] for r in m["runs"]]}
+        out[f"{kernel}_launches"], out[f"{kernel}_max_abs_err"] = launched[kernel], err
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[bench] phase took {out['seconds']:.1f}s")
+    return out
+
+
 # --- main ----------------------------------------------------------------------------
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the card and has no CPU path")
     sys.path.insert(0, str(HERE))
@@ -2274,6 +2378,15 @@ def main() -> int:
     )
     from gymca_torch.probes.timing import card as nvidia_smi_line
     from gymca_torch.probes.timing import cuda_ms, host_us, time_launches
+
+    # Each phase's seconds, for the [phases] line: mark(name) closes the
+    # phase that ran since the last mark.
+    phases, last_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phases[name] = now - last_mark[0]
+        last_mark[0] = now
 
     # 1. device
     smi = nvidia_smi_line()
@@ -2301,6 +2414,7 @@ def main() -> int:
     if (len(default) != 1 or not any(ALEXANDRIDIS_PTXAS in ln for ln in default[0])
             or not any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in default[0])):
         fail(f"the default alexandridis instance's ptxas report changed: {default}")
+    mark("build")
 
     # 3-4. kernel against plain: every env class, the band seams of the CA
     #      pass (fire on both sides, edits and shots on a band's first and
@@ -2330,6 +2444,7 @@ def main() -> int:
         fail(f"the 'masks past 48 KiB' cases stage {shared_memory_bytes(1024, 1024)} B a block")
     max_err = max(check_kernel(label, ki.windy_inputs(*args, gen, **kw))
                   for label, args, kw in k1_cases)
+    mark("windy_checks")
 
     # 5. the Alexandridis kernel against plain: the earlier sizes, then fire
     #    on tile edges only, burning tiles beside fire-free ones, fire only in
@@ -2344,6 +2459,7 @@ def main() -> int:
         check_alexandridis(f"{shape} {lay}",
                            *ki.alexandridis_inputs(*shape, gen, layout=lay, radius=rad))
         for shape, lay, rad in k2_cases)
+    mark("alexandridis_checks")
 
     # 6. slice 1's main path
     core = BulldozerCore(H, W)
@@ -2393,23 +2509,18 @@ def main() -> int:
         fail("windy_sparse disagrees with its plain version on main-path inputs")
     max_err = max(max_err, rec_err)
 
-    # 6. slice 1's times
-    rates = []
-    for rep in range(TIMING_REPS):
-        s = reset_states.clone()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s, _ = ki.run_steps(core, s, actions)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rates.append((N_ENVS * MAIN_STEPS / dt, dt, float(s.done.float().mean())))
-    best = max(rates)
-    log(f"[time] [{card}] step_batched {N_ENVS} x {H}x{W}, {MAIN_STEPS} steps, best of "
-        f"{TIMING_REPS}: {best[0]} env-steps/s ({best[1] * 1e3 / MAIN_STEPS} ms/step); "
-        f"reps " + ", ".join(f"{r[0]} env-steps/s (done fraction {r[2]})" for r in rates))
+    mark("main")
 
-    # K1's device time on three input sets, each beside its bound: the
-    # recorded main-path launches, every env a CA env, every env idle.
+    # 7b. bench.py on the port: both paths' env-steps/s through gymca_torch.bench
+    bench_out = bench_phase(card)
+    best, adv_best = bench_out["windy"]["value"], bench_out["advanced"]["value"]
+    max_err = max(max_err, bench_out["windy_max_abs_err"])
+    adv_max_err = max(adv_max_err, bench_out["alexandridis_max_abs_err"])
+    mark("bench")
+
+    # 6. slice 1's times: K1's device time on three input sets, each beside
+    # its bound: the recorded main-path launches, every env a CA env, every
+    # env idle.
     kin = [inp[1:] for inp in recorded]
     kernel_ms, bound_ms, bound_by = ki.time_k1(card, "on recorded main-path launches",
                                                recorded[0][0], kin, KERNEL_REPEATS)
@@ -2443,6 +2554,7 @@ def main() -> int:
     ki.run_steps(core, prof_states, actions[:2])  # warm
     prof = profile_steps(lambda: ki.run_steps(core, prof_states, actions[:PROFILE_STEPS]),
                          PROFILE_STEPS, f"step_batched {N_ENVS} x {H}x{W}", card)
+    mark("time_windy")
 
     # 7. slice 2's main path
     env = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
@@ -2520,6 +2632,7 @@ def main() -> int:
         fail(f"expected {K3_STEPS} alexandridis launches and finite rewards at {K3_SIZE}²")
     k3_recorded = ki.record_alexandridis_launches(env_k3, k3_obs, k3_info,
                                            ki.adv_actions(gen, 3, K3_ENVS))
+    mark("advanced")
 
     env_xla = AdvancedForestFireBulldozerEnv(ADV_SIZE, ADV_SIZE, key=rng.key(SEED),
                                              num_envs=ADV_ENVS, use_fused_ca=False,
@@ -2546,23 +2659,11 @@ def main() -> int:
     if outside:
         fail(f"fused and XLA-path statistics differ beyond 4 sigma: {outside}")
 
-    # 7. slice 2's times
-    adv_rates = []
-    for rep in range(TIMING_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, _, last = ki.adv_run(env, reset_obs, reset_info, adv_acts)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        adv_rates.append((ADV_ENVS * ADV_STEPS / dt, dt, float(last[2].float().mean())))
-    adv_best = max(adv_rates)
-    log(f"[time] [{card}] Advanced stateless_step + conditional_reset {ADV_ENVS} x "
-        f"{ADV_SIZE}x{ADV_SIZE}, {ADV_STEPS} steps, best of {TIMING_REPS}: {adv_best[0]} "
-        f"env-steps/s ({adv_best[1] * 1e3 / ADV_STEPS} ms/step); reps " + ", ".join(
-            f"{r[0]} env-steps/s (done fraction {r[2]})" for r in adv_rates))
+    mark("distribution")
 
-    # The Alexandridis kernel's device time on five input sets, each beside
-    # its bound for those inputs and its dense bound: at 64 x 256², launches
+    # 7. slice 2's times: the Alexandridis kernel's device time on five
+    # input sets, each beside its bound for those inputs and its dense
+    # bound: at 64 x 256², launches
     # recorded on the main path, the first launches after a reset (2 burning
     # cells per env) and synthetic 10%-fire inputs; at 8 x 512², recorded and
     # synthetic.
@@ -2605,38 +2706,49 @@ def main() -> int:
     adv_prof = profile_steps(
         lambda: ki.adv_run(env, reset_obs, reset_info, adv_acts[:PROFILE_STEPS]), PROFILE_STEPS,
         f"Advanced stateless_step + conditional_reset {ADV_ENVS} x {ADV_SIZE}x{ADV_SIZE}", card)
+    mark("time_advanced")
 
     # 8. slice 3: the probes
     probe_kernels = probe_phase(card, gen, adv_recorded)
+    mark("probe")
 
     # 9. slice 5: the trainer
     trained_state, train = train_phase(card)
     adv_max_err = max(adv_max_err, train["alexandridis_max_abs_err"])
+    mark("train")
 
     # 10-11. slice 7: the Helicopter and the evaluation
     heli = helicopter_phase(card, gen)
+    mark("helicopter")
     evaluation = eval_phase(card, trained_state)
     adv_max_err = max(adv_max_err, evaluation["alexandridis_max_abs_err"])
+    mark("eval")
 
     # 12-15. slice 8: pinecones, the legacy spec, the curve and the policy evaluation
     pinecones = pinecone_phase(card, gen)
+    mark("pinecones")
     legacy = legacy_phase()
+    mark("legacy")
     with tempfile.TemporaryDirectory() as out:
         curve, blob, modf_blob = curve_phase(card, Path(out))
+        mark("curve")
         policy = policy_phase(card, blob, modf_blob)
+        mark("policy")
     adv_max_err = max(adv_max_err, curve["alexandridis_max_abs_err"],
                       policy["alexandridis_max_abs_err"])
 
     # 16. slice 9: parallel/ on NCCL, after every other phase: none of them
     #     sees a process group
-    par = parallel_phase(card, gen, train["samples_per_s"], best[0])
+    par = parallel_phase(card, gen, train["samples_per_s"], best)
     adv_max_err = max(adv_max_err, par["alexandridis_max_abs_err"])
+    mark("parallel")
 
     # 17. slice 10: the tools of scripts/, in a process of their own
     tools = tools_process()
     max_err = max(max_err, tools["windy_max_abs_err"])
     adv_max_err = max(adv_max_err, tools["alexandridis_max_abs_err"])
     tool_launches = tools["launches"]
+    mark("tools")
 
     # 18-19. result lines
     kernels = [{
@@ -2646,10 +2758,12 @@ def main() -> int:
         "replaces": "gymca_tpu/ops/pallas_kernels.py:516",
         "launches": launches,
         "launches_by_path": {"bulldozer": launches,
+                             "bench": bench_out["windy_launches"],
                              "scaling": par["scaling_windy_launches"],
                              **{k: v["windy"] for k, v in tool_launches.items()
                                 if k in ("profile_step", "exp_split")}},
-        "max_abs_err_by_path": {"bulldozer": rec_err, "tools": tools["windy_max_abs_err"]},
+        "max_abs_err_by_path": {"bulldozer": rec_err, "bench": bench_out["windy_max_abs_err"],
+                                "tools": tools["windy_max_abs_err"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2663,6 +2777,7 @@ def main() -> int:
         "replaces": "gymca_tpu/ops/pallas_alexandridis.py:567",
         "launches": adv_launches,
         "launches_by_path": {"advanced": adv_launches,
+                             "bench": bench_out["alexandridis_launches"],
                              "train": train["alexandridis_launches"],
                              "eval": evaluation["alexandridis_launches"],
                              "curve": curve["alexandridis_launches"],
@@ -2671,6 +2786,7 @@ def main() -> int:
                              **{k: v["alexandridis"] for k, v in tool_launches.items()
                                 if k not in ("profile_step", "exp_split")}},
         "max_abs_err_by_path": {"advanced": adv_rec_err,
+                                "bench": bench_out["alexandridis_max_abs_err"],
                                 "train": train["alexandridis_max_abs_err"],
                                 "eval": evaluation["alexandridis_max_abs_err"],
                                 "curve": curve["alexandridis_max_abs_err"],
@@ -2684,14 +2800,17 @@ def main() -> int:
         "bound_by": adv_bound_by,
         "library_ms": None,
     }] + probe_kernels
+    phases["total"] = time.perf_counter() - t_start
+    log("[phases] seconds: " + json.dumps(phases))
     log(json.dumps({"kernels": kernels}))
     old_keys = ("kernels_per_step", "idle_share")
     if prof is not None:
-        log(json.dumps({"step": {"env_steps_per_sec": best[0],
+        log(json.dumps({"step": {"env_steps_per_sec": best,
                                  **{k: prof[k] for k in old_keys}}}))
     if adv_prof is not None:
-        log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best[0],
+        log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best,
                                           **{k: adv_prof[k] for k in old_keys}}}))
+    log(json.dumps({"bench": bench_out}))
     log(json.dumps({"train": train}))
     log(json.dumps({"helicopter": heli}))
     log(json.dumps({"eval": evaluation}))

@@ -306,11 +306,15 @@ def adv_actions(gen, steps, n, device="cuda"):
     return torch.stack([r // 2, r % 2, torch.zeros_like(r)], dim=-1).to(torch.int32)
 
 
-def adv_run(env, obs, info, actions):
+def adv_run(env, obs, info, actions, reward_sums=None):
     """``stateless_step`` then ``conditional_reset`` per action; returns the
-    last observation and info and the last ``stateless_step`` tuple."""
+    last observation and info and the last ``stateless_step`` tuple.  Each
+    step's reward summed over the envs is appended to ``reward_sums`` if it
+    is a list, as ``bench.py``'s loop sums it."""
     for a in actions:
         step = env.stateless_step(a, obs, info)
+        if reward_sums is not None:
+            reward_sums.append(step[1].sum())
         reset = env.conditional_reset(step, a)
         obs, info = reset[0], reset[4]
     return obs, info, step

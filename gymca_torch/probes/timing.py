@@ -23,11 +23,18 @@ A part of a step, as the step breakdowns report it
 start, each to a synchronize, and on a card the device's own numbers from
 a traced run of its first ``TRACE_STEPS`` steps (:func:`profile_steps`:
 device kernels and busy µs a step, the idle share of the device span, the
-kernels that take most of it).
+kernels that take most of it).  A traced session that lost its kernel events
+is taken again there too, up to ``SESSION_TRIES`` times: one that kept no
+device event, or kernel events for fewer than half the kernels the host
+launched in it.  Every session on an H100 keeps a few kernel events fewer
+than the host launched (42 of 50 launches of K2 alone with its wrapper's
+ops, in each of 8 sessions; 26,403-26,409 of an Advanced step's 26,410), so
+a session is not taken again for those.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 import time
@@ -36,7 +43,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 __all__ = ["card", "kernel_durations_us", "cuda_ms", "host_us", "time_launches",
-           "profile_steps", "time_steps", "device_note"]
+           "profile_steps", "time_steps", "device_note", "sync_errors"]
 
 # Steps a traced run of a path makes (``time_steps``): a trace's events
 # are read back in Python, and a step of the key chain alone launches
@@ -47,6 +54,10 @@ TRACE_STEPS = 10
 # running: so up to this many sessions, a pause growing between them,
 # before a timing gives up.
 SESSION_TRIES = 10
+# Host calls that launch one device kernel each, as the profiler names them,
+# and the device events that are copies and fills rather than kernels.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel")
+NOT_KERNELS = ("Memcpy", "Memset")
 
 
 def card() -> str:
@@ -154,12 +165,10 @@ def time_launches(run: Callable[[], object], launches: int, kernel: str, reps: i
             "kernels": {k: statistics.median(m[k] for m in means) for k in names}}
 
 
-def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
-                  top: int = 12) -> Optional[dict]:
-    """Trace ``run()``, which makes ``steps`` steps of a warmed-up path: device
-    kernels per step, busy time, idle share and, printed, the ``top`` kernels
-    by device time.  Returns None, and says so, when the profiler shows no
-    device time."""
+def _traced(run: Callable[[], object]):
+    """One profiler session of ``run()``: the profiler, the host seconds
+    under it, the (start, end) of every device event, sorted, and how many
+    of those are kernels against the kernel launches the host made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,11 +178,38 @@ def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
         run()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        print(f"[profile] [{card}] the profiler shows no device time; device "
-              f"kernels per step not measured", flush=True)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    kernels = sum(1 for e in device if not e.name.startswith(NOT_KERNELS))
+    launched = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_CALLS))
+    return prof, host_s, spans, kernels, launched
+
+
+def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
+                  top: int = 12, reset: Optional[Callable[[], object]] = None) -> Optional[dict]:
+    """Trace ``run()``, which makes ``steps`` steps of a warmed-up path: device
+    kernels per step, busy time, idle share and, printed, the ``top`` kernels
+    by device time.  A session that kept no device event, or kernel events
+    for fewer than half the kernels the host launched in it, is taken again
+    (``reset()`` first, if given), up to ``SESSION_TRIES`` sessions, a pause
+    growing between them; the line says how many it took and what the kept
+    one saw.  Returns None, and says so, only when every session came back
+    short."""
+    from torch.autograd import DeviceType
+
+    reset = reset or (lambda: None)
+    for t in range(SESSION_TRIES):
+        if t:
+            time.sleep(0.05 * t)
+            reset()
+        prof, host_s, spans, kernels, launched = _traced(run)
+        if spans and 2 * kernels >= launched:
+            break
+    else:
+        print(f"[profile] [{card}] {label}: the profiler kept {kernels} kernel events of "
+              f"{launched} launches in the last of {SESSION_TRIES} sessions; device kernels "
+              f"per step not measured", flush=True)
         return None
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -188,7 +224,8 @@ def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
     print(f"[profile] [{card}] {label}, {steps} steps traced: "
           f"{len(spans) / steps} device kernels/step, device busy {busy / steps} us/step "
           f"of a {span / steps} us/step device span (idle share {idle}); host wall "
-          f"under the profiler {host_s * 1e6 / steps} us/step", flush=True)
+          f"under the profiler {host_s * 1e6 / steps} us/step; {t + 1} session(s) taken, "
+          f"the kept one with {kernels} kernel events of {launched} launches", flush=True)
     rows = sorted(
         (e for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
@@ -199,7 +236,8 @@ def profile_steps(run: Callable[[], object], steps: int, label: str, card: str,
               f"{e.count / steps:8.1f} launches/step "
               f"{100 * e.device_time_total / busy:5.1f}%  {e.key[:90]}", flush=True)
     return {"kernels_per_step": len(spans) / steps, "idle_share": idle,
-            "busy_us_per_step": busy / steps, "span_us_per_step": span / steps}
+            "busy_us_per_step": busy / steps, "span_us_per_step": span / steps,
+            "sessions": t + 1}
 
 
 def time_steps(run: Callable[[int], object], steps: int, label: str, device,
@@ -213,8 +251,9 @@ def time_steps(run: Callable[[int], object], steps: int, label: str, device,
     a card.  On a card ``run(min(steps, trace_steps))`` is then traced
     (:func:`profile_steps`; a part of a few kernels a step, such as a kernel
     alone, can trace all its steps): ``busy_us_per_step``,
-    ``kernels_per_step`` and ``idle_share`` (None where the profiler saw no
-    device time, and on the CPU, where only the host clock runs)."""
+    ``kernels_per_step`` and ``idle_share`` (None where the profiler kept too
+    few kernel events in every session, and on the CPU, where only the host
+    clock runs)."""
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     reset = reset or (lambda: None)
@@ -234,7 +273,7 @@ def time_steps(run: Callable[[int], object], steps: int, label: str, device,
         reset()
         traced = min(steps, trace_steps)
         prof = profile_steps(lambda: run(traced), traced, label,
-                             card or torch.cuda.get_device_name(), top)
+                             card or torch.cuda.get_device_name(), top, reset)
         if prof is not None:
             out.update({k: prof[k] for k in ("busy_us_per_step", "kernels_per_step",
                                              "idle_share")})
@@ -247,3 +286,18 @@ def device_note(t: dict) -> str:
         return "device not measured (host clock only)"
     return (f"device busy {t['busy_us_per_step']:.1f} us/step, "
             f"{t['kernels_per_step']:.1f} kernels/step, idle share {t['idle_share']:.3f}")
+
+
+@contextlib.contextmanager
+def sync_errors(device):
+    """While open on a CUDA ``device``, ``torch.cuda.set_sync_debug_mode(
+    "error")``: a call that makes the host wait for the card raises.  Nothing
+    on the CPU."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -933,3 +933,55 @@ def test_stubbed_ca_launches_no_kernel_on_the_card(cuda):
     assert k2["step_no_ca"] == 0 and k2["obs_iso"] == 0
     assert min(k2[v] for v in ("full", "step_only", "step_no_obs", "ca_iso")) > 0
     assert advanced.alexandridis_fused_step is ak.alexandridis_fused_step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["windy", "advanced"])
+def test_bench_on_the_card_equals_its_cpu_run(cuda, path):
+    """``gymca_torch.bench`` at 128² (K1, and K2's 128-column tiles) on the
+    card and on the CPU (plain versions): the last run's end states equal
+    bit for bit, every run's per-step reward sums within 1e-6 (float32 sums
+    over the envs in the card's order and the CPU's); 5 x steps launches of
+    the path's kernel on the card."""
+    from gymca_torch import bench
+    from gymca_torch.interop import advanced_obs_to_numpy, env_state_to_numpy
+
+    size, n, steps = 128, 8, 12
+    if path == "windy":
+        counter, measure = wk.windy_fused_step, bench.measure_windy
+    else:
+        counter, measure = ak.alexandridis_fused_step, bench.measure_advanced
+    before = counter.launches
+    on_card = measure(size, n, steps, cuda)
+    assert counter.launches - before == on_card["launches"] == (bench.WARM + bench.REPS) * steps
+    on_cpu = measure(size, n, steps, "cpu")
+    assert on_card["path"] != on_cpu["path"]  # the kernel there, its plain version here
+    for card_run, cpu_run in zip(on_card["runs"], on_cpu["runs"]):
+        torch.testing.assert_close(card_run["reward_sums"].cpu(), cpu_run["reward_sums"],
+                                   rtol=1e-6, atol=1e-6)
+    a, b = on_card["runs"][-1], on_cpu["runs"][-1]
+    if path == "windy":
+        core = BulldozerCore(size, size, device="cpu")
+        got = env_state_to_numpy(a["states"])
+        want = env_state_to_numpy(b["states"])
+        got["grid"] = BulldozerCore(size, size, device=cuda).materialize_grid(
+            a["states"]).cpu().numpy()
+        want["grid"] = core.materialize_grid(b["states"]).numpy()
+    else:
+        got = advanced_obs_to_numpy(a["obs"], a["info"])
+        want = advanced_obs_to_numpy(b["obs"], b["info"])
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        elif isinstance(tree, (tuple, list)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}{i}.")
+        else:
+            yield prefix, np.asarray(tree)
+
+    want_leaves = dict(leaves(want))
+    for name, v in leaves(got):
+        np.testing.assert_array_equal(v, want_leaves[name], err_msg=name)
+    assert on_card["done_fraction"] == on_cpu["done_fraction"]

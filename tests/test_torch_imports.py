@@ -41,6 +41,8 @@ PARALLEL = ("parallel/__init__", "parallel/mesh", "parallel/sharded", "parallel/
 TOOLS = ("profile_step", "probes/exp_split", "bench_advanced", "profile_advanced",
          "exp_advanced_split", "validate_fused_ca", "exp_policy_ceiling", "update_gallery",
          "versionate", "probes/kernel_inputs")
+# bench.py as ``python3 -m gymca_torch.bench``.
+BENCH = ("bench",)
 
 
 def imported_modules(path: Path):
@@ -69,7 +71,7 @@ def test_port_sources_exist():
     assert "gymca_torch/run.py" in names
     for probe in PROBES:
         assert f"gymca_torch/probes/{probe}.py" in names
-    for mod in SURFACE + SLICE_8 + PARALLEL + TOOLS:
+    for mod in SURFACE + SLICE_8 + PARALLEL + TOOLS + BENCH:
         assert f"gymca_torch/{mod}.py" in names
 
 
@@ -103,6 +105,7 @@ def test_ast_scan_catches_forbidden_imports(tmp_path):
     *("gymca_torch." + m.replace("/", ".") for m in SLICE_8),
     *("gymca_torch." + m.replace("/__init__", "").replace("/", ".") for m in PARALLEL),
     *("gymca_torch." + m.replace("/", ".") for m in TOOLS),
+    *("gymca_torch." + m for m in BENCH),
 ])
 def test_modules_import_without_a_card(module):
     importlib.import_module(module)

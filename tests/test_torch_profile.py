@@ -76,6 +76,100 @@ def test_time_steps_restores_before_every_run_and_times_only_the_host_on_the_cpu
     assert t["busy_us_per_step"] is t["kernels_per_step"] is t["idle_share"] is None
 
 
+class FakeProfile:
+    """``torch.profiler.profile``'s stand-in: each session takes the next of
+    ``SESSIONS``, ``(device kernel events, host launches)``, kernels of 2 µs
+    each 5 µs apart."""
+
+    SESSIONS: list = []
+
+    def __init__(self, activities):
+        self.kernels, self.launched = self.SESSIONS.pop(0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        from types import SimpleNamespace
+
+        from torch.autograd import DeviceType
+
+        def event(device_type, name, start):
+            return SimpleNamespace(device_type=device_type, name=name,
+                                   time_range=SimpleNamespace(start=start, end=start + 2.0))
+
+        return ([event(DeviceType.CUDA, "k", 5.0 * i) for i in range(self.kernels)]
+                + [event(DeviceType.CPU, "cudaLaunchKernel", 0.0)] * self.launched
+                + [event(DeviceType.CPU, "aten::add", 0.0)])
+
+    def key_averages(self):
+        from types import SimpleNamespace
+
+        from torch.autograd import DeviceType
+
+        return [SimpleNamespace(device_type=DeviceType.CUDA, device_time_total=2.0 * self.kernels,
+                                count=self.kernels, key="k")]
+
+
+@pytest.fixture
+def fake_profiler(monkeypatch):
+    import torch.profiler
+
+    from gymca_torch.probes import timing
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(timing.time, "sleep", lambda s: None)
+    monkeypatch.setattr(FakeProfile, "SESSIONS", [])
+    return FakeProfile.SESSIONS
+
+
+@pytest.mark.parametrize("first", [(0, 0), (0, 8), (3, 8)],
+                         ids=["no events", "no device events", "most kernel events lost"])
+def test_profile_steps_takes_a_short_session_again(fake_profiler, first, capsys):
+    """A session with no device event, or kernel events for fewer than half
+    the host's launches, is taken again (``reset()`` first); the next is
+    kept and the line says two sessions were taken."""
+    from gymca_torch.probes.timing import profile_steps
+
+    fake_profiler += [first, (8, 8)]
+    calls = []
+    out = profile_steps(lambda: calls.append("run"), 4, "x", "card",
+                        reset=lambda: calls.append("reset"))
+    assert calls == ["run", "reset", "run"] and not fake_profiler
+    assert out["sessions"] == 2 and out["kernels_per_step"] == 2.0
+    assert out["busy_us_per_step"] == 8 * 2.0 / 4
+    assert "2 session(s) taken, the kept one with 8 kernel events of 8 launches" in \
+        capsys.readouterr().out
+
+
+def test_profile_steps_keeps_a_session_that_lost_a_few_kernel_events(fake_profiler, capsys):
+    """As every session on an H100 does (42 of 50 launches kept): kept at
+    once."""
+    from gymca_torch.probes.timing import profile_steps
+
+    fake_profiler += [(42, 50)]
+    out = profile_steps(lambda: None, 10, "x", "card")
+    assert out["sessions"] == 1 and out["kernels_per_step"] == 4.2
+    assert "1 session(s) taken, the kept one with 42 kernel events of 50 launches" in \
+        capsys.readouterr().out
+
+
+def test_profile_steps_gives_up_after_every_session_came_back_empty(fake_profiler,
+                                                                    monkeypatch, capsys):
+    from gymca_torch.probes import timing
+
+    monkeypatch.setattr(timing, "SESSION_TRIES", 3)
+    fake_profiler += [(0, 5)] * 3
+    runs = []
+    assert timing.profile_steps(lambda: runs.append(1), 2, "x", "card") is None
+    assert len(runs) == 3 and not fake_profiler
+    assert "not measured" in capsys.readouterr().out
+
+
 # --- profile_step ---------------------------------------------------------------------
 
 
