@@ -43,13 +43,42 @@ draws' seconds, every rep and the done fraction.  Knobs: bench.py's
 ``GYMCA_BENCH_SIZE``, ``_ENVS``, ``_STEPS``, ``_ADV=0``, ``_ADV_ENVS``,
 ``_BASELINE_SPS``, ``_ADV_BASELINE_SPS`` and ``--smoke``; ``--device-cpu``
 runs on the CPU, which without it is refused.  ``GYMCA_BENCH_STENCIL``
-takes only ``auto``: K1 has one formulation.  bench.py's sharded branch is
-not ported: with several cards the bench steps on the current one.
+takes only ``auto``: K1 has one formulation.
+
+bench.py's sharded branch (bench.py:75-98) runs under ``torchrun``, one rank
+a card (``cuda:LOCAL_RANK``, NCCL), or gloo ranks with ``--device-cpu``:
+
+    torchrun --standalone --nproc-per-node 4 -m gymca_torch.bench
+    torchrun --standalone --nproc-per-node 2 -m gymca_torch.bench --smoke --device-cpu
+
+When ``GYMCA_BENCH_ENVS`` divides over the d ranks and ``GYMCA_BENCH_SHARD``
+is not ``0`` (bench.py's condition), rank r steps rows ``[r n/d, (r+1) n/d)``
+of the batch one card steps: those rows of ``split(key(0), n)``'s reset
+states and of every step's actions (each rank draws the whole batch's
+actions outside the clock and keeps its rows, as bench.py draws them
+globally and splits them over ``P("data")``).  Each run's clock starts after
+a barrier and a synchronize on every rank and ends on each rank's own fetch
+and synchronize; the run's time is the slowest rank's
+(``probes.timing.clock_on_ranks``, shared with ``bench_scaling``), the value
+``n * steps / best`` as on one card, the done fraction over all n envs and
+each step's reward sum over all ranks.  Otherwise rank 0 steps the whole
+batch, says why, and the other ranks wait.  The Advanced measure and the
+numpy baseline run on rank 0 alone (bench.py's Advanced part is
+single-device), while the other ranks wait on a gloo group whose timeout is
+``WAIT_S``.  Only rank 0 writes stdout; each rank writes its own stderr
+lines (its card, reps, launches), prefixed with its rank.
+
+Departure from bench.py: bench.py shards over every device its one process
+sees; the port shards over the ranks torchrun starts, one process a card,
+PyTorch's idiom.  A plain ``python3 -m gymca_torch.bench`` on a host of
+several cards steps on one of them and says so on stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import functools
 import json
 import math
 import os
@@ -58,20 +87,29 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gymca_torch import rng
 from gymca_torch.bench_advanced import run as advanced_run
 from gymca_torch.config import resolve_device
-from gymca_torch.probes.timing import card, sync_errors
+from gymca_torch.parallel.mesh import initialize_distributed
+from gymca_torch.probes.timing import card, clock_on_ranks, sync_errors
 
-__all__ = ["windy_actions", "windy_run", "measure_windy", "measure_advanced",
+__all__ = ["windy_actions", "windy_run", "windy_shard", "measure_windy", "measure_advanced",
            "measure_reference_style_numpy", "parse_args", "main"]
 
 WARM, REPS = 2, 3  # untimed runs, then timed runs of which the best counts
+# How long the other ranks wait for rank 0 under torchrun: its Advanced runs
+# and baseline (2.5-3 minutes at the defaults on an H100), and all of the
+# windy runs when the batch is not sharded.
+WAIT_S = 1800
 
 
 def log(*parts):
-    print(*parts, file=sys.stderr, flush=True)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        parts = (f"[rank {dist.get_rank()}]",) + parts
+    sys.stderr.write(" ".join(map(str, parts)) + "\n")  # one write: ranks share stderr
+    sys.stderr.flush()
 
 
 def windy_actions(key, steps: int, n: int):
@@ -88,68 +126,120 @@ def windy_actions(key, steps: int, n: int):
     return actions
 
 
-def windy_run(core, reset_states, key, steps: int) -> dict:
+def windy_run(core, reset_states, key, steps: int, group=None) -> dict:
     """One windy run of ``steps`` steps of ``core.step_batched`` from a clone
     of ``reset_states`` with the actions of :func:`windy_actions` from
-    ``key``, both made before the clock starts.  Returns ``seconds``,
-    ``draw_seconds``, the end ``states`` and ``reward_sums`` (each step's
-    reward summed over the envs)."""
+    ``key``, both made before the clock starts.  With a process ``group`` of
+    d ranks, ``reset_states`` are this rank's rows r of d equal blocks of the
+    batch, and the run steps those rows of the whole batch's actions, timed
+    by every rank (``clock_on_ranks``).  Returns ``seconds`` (the slowest
+    rank's), ``own_seconds`` (this rank's), ``draw_seconds``, the end
+    ``states`` (this rank's rows) and ``reward_sums`` (each step's reward
+    summed over the batch, over every rank)."""
     dev = reset_states.grid.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    per = reset_states.grid.shape[0]
     t0 = time.perf_counter()
-    actions = windy_actions(key, steps, reset_states.grid.shape[0])
+    if group is None:
+        actions = windy_actions(key, steps, per)
+    else:
+        lo = dist.get_rank(group) * per
+        actions = windy_actions(key, steps, per * dist.get_world_size(group))
+        actions = actions[:, lo:lo + per].contiguous()
     states = reset_states.clone()
     sync()
     t1 = time.perf_counter()
-    sums = []
-    with sync_errors(dev):
-        for a in actions:
-            states, out = core.step_batched(states, a)
-            sums.append(out.reward.sum())
-    float(sums[-1])
-    sync()
-    t2 = time.perf_counter()
-    return {"seconds": t2 - t1, "draw_seconds": t1 - t0, "states": states,
-            "reward_sums": torch.stack(sums)}
+
+    def steps_from(states):
+        sums = []
+        with sync_errors(dev):
+            for a in actions:
+                states, out = core.step_batched(states, a)
+                sums.append(out.reward.sum())
+        float(sums[-1])
+        return states, torch.stack(sums)
+
+    (states, sums), own, slowest = clock_on_ranks(functools.partial(steps_from, states), dev,
+                                                  group)
+    if group is not None:
+        dist.all_reduce(sums, group=group)
+    return {"seconds": slowest, "own_seconds": own, "draw_seconds": t1 - t0,
+            "states": states, "reward_sums": sums}
 
 
-def _report_reps(label, drawn, runs, envs, steps, kernel, launches, path):
+def _report_reps(label, drawn, runs, envs, steps, kernel, launches, path, sharded=False):
     log(f"[bench] {label}outside each run's clock, {drawn}: "
         + ", ".join(f"{r['draw_seconds']:.3f}" for r in runs) + " s")
     log(f"[bench] {label}{kernel} launches in the {len(runs)} runs: {launches} ({path})")
     for i, r in enumerate(runs[WARM:]):
         dt = r["seconds"]
-        log(f"[bench] {label}rep {i}: {dt * 1e3:.1f} ms ({envs * steps / dt:,.0f} steps/s)")
+        own = f"; this rank's own {r['own_seconds'] * 1e3:.1f} ms" if sharded else ""
+        log(f"[bench] {label}rep {i}: {dt * 1e3:.1f} ms ({envs * steps / dt:,.0f} steps/s){own}")
 
 
-def measure_windy(size: int, num_envs: int, steps: int, device) -> dict:
+def windy_shard(num_envs: int, group):
+    """Whether ``group`` shards ``num_envs`` windy envs (bench.py:78-80):
+    None when it does, else the reason it does not."""
+    d = dist.get_world_size(group)
+    if os.environ.get("GYMCA_BENCH_SHARD", "1") == "0":
+        return "GYMCA_BENCH_SHARD=0"
+    if num_envs % d:
+        return f"{num_envs} envs do not divide over {d} ranks"
+    return None
+
+
+def measure_windy(size: int, num_envs: int, steps: int, device, group=None):
     """bench.py's ``measure_tpu_native``: ``value``, env-steps/s of the best
     of ``REPS`` runs after ``WARM``, with every run (``runs``, each
     :func:`windy_run`'s dict, the end ``states`` kept for the last run only),
-    the done fraction after the last, the path taken and K1's ``launches``."""
+    the done fraction after the last, the path taken and K1's ``launches``.
+
+    With a process ``group`` of d > 1 ranks every rank of it calls this: the
+    batch is sharded over them (the module docstring), or, where
+    :func:`windy_shard` gives a reason, rank 0 steps it whole and the other
+    ranks return None at once.  ``states`` and ``launches`` are then this
+    rank's."""
     from gymca_torch.envs.bulldozer import BulldozerCore
     from gymca_torch.ops.windy_kernel import windy_fused_step
 
+    rank, d = 0, 1
+    if group is not None and dist.get_world_size(group) > 1:
+        rank, ranks, why = dist.get_rank(group), dist.get_world_size(group), \
+            windy_shard(num_envs, group)
+        if rank == 0:
+            log(f"[bench] sharding {num_envs} envs over {ranks} ranks ({num_envs // ranks} a "
+                f"rank)" if why is None else f"[bench] not sharding ({why}): rank 0 steps all "
+                f"{num_envs} envs, the other {ranks - 1} ranks wait")
+        if why is None:
+            d = ranks
+        elif rank:
+            return None
+    group = group if d > 1 else None
     dev = torch.device(device)
     core = BulldozerCore(size, size, device=dev)
     key = rng.key(0, device=dev)
-    reset_states = core.initial_state(rng.split(key, num_envs))
+    per = num_envs // d
+    reset_states = core.initial_state(rng.split(key, num_envs)[rank * per:(rank + 1) * per])
     path = ("windy kernel K1" if dev.type == "cuda" else "K1's plain version") \
         if core.supports_fused_step() else "eager step (several CA periods a step)"
     log(f"[bench] path=step_batched, {path}, grid_dtype={core._grid_dtype} size={size} "
-        f"envs={num_envs} steps={steps}")
+        f"envs={num_envs} steps={steps}" + (f", rows {rank * per}-{(rank + 1) * per - 1} here"
+                                            if group is not None else ""))
     keys = [key, rng.fold_in(key, 1)] + [rng.fold_in(key, 2 + i) for i in range(REPS)]
     before = windy_fused_step.launches
     t0 = time.perf_counter()
-    runs = [windy_run(core, reset_states, keys[0], steps)]
+    runs = [windy_run(core, reset_states, keys[0], steps, group)]
     log(f"[bench] first run: {time.perf_counter() - t0:.1f}s")
-    runs += [windy_run(core, reset_states, k, steps) for k in keys[1:]]
+    runs += [windy_run(core, reset_states, k, steps, group) for k in keys[1:]]
     for r in runs[:-1]:
         del r["states"]  # a grid as large as the batch's, each
     launches = windy_fused_step.launches - before
     _report_reps("", "its actions drawn for every step and the reset states cloned", runs,
-                 num_envs, steps, "K1", launches, path)
-    done = float(runs[-1]["states"].done.float().mean())
+                 num_envs, steps, "K1", launches, path, sharded=group is not None)
+    done = runs[-1]["states"].done.sum()
+    if group is not None:
+        dist.all_reduce(done, group=group)
+    done = int(done) / num_envs
     log(f"[bench] done fraction after {steps} steps: {done:.3f}")
     best = min(r["seconds"] for r in runs[WARM:])
     return {"value": num_envs * steps / best, "runs": runs, "done_fraction": done,
@@ -251,7 +341,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> list:
-    """bench.py's ``main``: prints its two JSON lines and returns them."""
+    """bench.py's ``main``: prints its two JSON lines and returns them (on
+    rank 0; an empty list on the other ranks under torchrun)."""
     a = parse_args(argv)
     stencil = os.environ.get("GYMCA_BENCH_STENCIL", "auto")
     if stencil != "auto":
@@ -259,13 +350,31 @@ def main(argv=None) -> list:
             f"GYMCA_BENCH_STENCIL={stencil!r}: K1 has one formulation, so only 'auto' is "
             f"taken; the windy CA's formulations are compared by S4, python3 -m "
             f"gymca_torch.probes.exp_ca_variants")
-    dev = resolve_device("cpu" if a.device_cpu else None)
+    if "WORLD_SIZE" not in os.environ:
+        return _bench(a, resolve_device("cpu" if a.device_cpu else None))
+    if a.device_cpu:
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    initialize_distributed(device="cpu" if a.device_cpu else None)
+    try:
+        wait = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=WAIT_S))
+        dev = (torch.device("cpu") if a.device_cpu
+               else torch.device("cuda", torch.cuda.current_device()))
+        lines = _bench(a, dev, dist.group.WORLD)
+        dist.barrier(group=wait)  # the other ranks wait here for rank 0
+        return lines
+    finally:
+        dist.destroy_process_group()
+
+
+def _bench(a, dev, group=None) -> list:
+    lead = group is None or dist.get_rank(group) == 0
     if dev.type == "cuda":
         log(f"[bench] device={card()} (nvidia-smi name, power limit)")
-        if torch.cuda.device_count() > 1:
-            log(f"[bench] {torch.cuda.device_count()} cards: the bench steps on "
-                f"cuda:{torch.cuda.current_device()} only (bench.py's sharded branch is not "
-                f"ported; python3 -m gymca_torch.bench_scaling measures several ranks)")
+        if group is None and torch.cuda.device_count() > 1:
+            n = torch.cuda.device_count()
+            log(f"[bench] {n} cards: the bench steps on cuda:{torch.cuda.current_device()} "
+                f"only; torchrun --standalone --nproc-per-node {n} -m gymca_torch.bench "
+                f"shards the windy batch over them (bench.py's sharded branch)")
     else:
         log("[bench] device=cpu (plain versions, host clock only)")
     smoke = a.smoke
@@ -273,7 +382,10 @@ def main(argv=None) -> list:
     num_envs = int(os.environ.get("GYMCA_BENCH_ENVS", 64 if smoke else 4096))
     steps = int(os.environ.get("GYMCA_BENCH_STEPS", 10 if smoke else 1000))
 
-    value = measure_windy(size, num_envs, steps, dev)["value"]
+    windy = measure_windy(size, num_envs, steps, dev, group)
+    if not lead:
+        return []
+    value = windy["value"]
     base_env = os.environ.get("GYMCA_BENCH_BASELINE_SPS")
     if base_env:
         baseline = float(base_env)

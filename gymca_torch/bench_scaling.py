@@ -22,18 +22,19 @@ their efficiency says nothing of hardware.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import socket
 import sys
-import time
 
 import torch
 import torch.distributed as dist
 
 from gymca_torch import rng
 from gymca_torch.envs.bulldozer import BulldozerCore
-from gymca_torch.parallel.mesh import collective_device, initialize_distributed, make_mesh
+from gymca_torch.parallel.mesh import initialize_distributed, make_mesh
+from gymca_torch.probes.timing import clock_on_ranks
 
 SMOKE = {"size": 16, "envs_per_device": 8, "steps": 5}
 WARMUP, REPS = 2, 3  # untimed runs, then timed runs of which the best counts
@@ -65,7 +66,9 @@ def _free_port() -> int:
 def measure(core: BulldozerCore, group, num_envs: int, steps: int) -> float:
     """Env-steps/s of ``group``'s ranks, each stepping ``num_envs`` envs for
     ``steps`` steps from the same fresh states every run: the best of
-    ``REPS`` runs after ``WARMUP``, each run's time the slowest rank's."""
+    ``REPS`` runs after ``WARMUP``, each run's time the slowest rank's
+    (``probes.timing.clock_on_ranks``).  Each rank prints its own and the
+    slowest rank's time of every timed run on stderr."""
     dev = core.device
     rank = dist.get_rank()
     start = core.initial_state(rng.split(rng.key(rank, device=dev), num_envs))
@@ -76,25 +79,21 @@ def measure(core: BulldozerCore, group, num_envs: int, steps: int) -> float:
                           dim=-1).to(torch.int32)
     step = core.step_batched if dev.type == "cuda" else core.step
 
-    def run():
-        states = start.clone()  # step_batched updates grids in place
-        dist.barrier(group=group)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
+    def run(states):
         for a in actions:
             states, _ = step(states, a)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        took = torch.tensor([time.perf_counter() - t0], dtype=torch.float64,
-                            device=collective_device())
-        dist.all_reduce(took, op=dist.ReduceOp.MAX, group=group)
-        return float(took)
 
-    for _ in range(WARMUP):
-        run()
-    best = min(run() for _ in range(REPS))
-    return dist.get_world_size(group) * num_envs * steps / best
+    # step_batched updates grids in place: each run steps a clone of the start
+    reps = [clock_on_ranks(functools.partial(run, start.clone()), dev, group)[1:]
+            for _ in range(WARMUP + REPS)][WARMUP:]
+    d = dist.get_world_size(group)
+    sys.stderr.write(  # one write: ranks share stderr
+        f"[scaling] rank {rank} d={d}: reps " + ", ".join(f"{own * 1e3:.1f}" for own, _ in reps)
+        + " ms on this rank, " + ", ".join(f"{slow * 1e3:.1f}" for _, slow in reps)
+        + " ms on the slowest\n")
+    sys.stderr.flush()
+    best = min(slow for _, slow in reps)
+    return d * num_envs * steps / best
 
 
 def run(a) -> list:

@@ -30,6 +30,10 @@ launched in it.  Every session on an H100 keeps a few kernel events fewer
 than the host launched (42 of 50 launches of K2 alone with its wrapper's
 ops, in each of 8 sessions; 26,403-26,409 of an Advanced step's 26,410), so
 a session is not taken again for those.
+
+A run on several ranks (``gymca_torch.bench``'s sharded windy runs,
+``bench_scaling``) is timed by :func:`clock_on_ranks`: a barrier, a
+synchronize, the run, a synchronize, and the slowest rank's seconds.
 """
 
 from __future__ import annotations
@@ -41,9 +45,10 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["card", "kernel_durations_us", "cuda_ms", "host_us", "time_launches",
-           "profile_steps", "time_steps", "device_note", "sync_errors"]
+__all__ = ["card", "kernel_durations_us", "cuda_ms", "host_us", "clock_on_ranks",
+           "time_launches", "profile_steps", "time_steps", "device_note", "sync_errors"]
 
 # Steps a traced run of a path makes (``time_steps``): a trace's events
 # are read back in Python, and a step of the key chain alone launches
@@ -112,6 +117,31 @@ def host_us(fn: Callable[[], object], reps: int = 20) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e6
+
+
+def clock_on_ranks(run: Callable[[], object], device, group=None):
+    """One timed ``run()`` on every rank of the process ``group``, or on this
+    process alone when ``group`` is None: a barrier over the group, a
+    synchronize on a card, ``run()``, a synchronize.  Returns ``(run()'s
+    result, this rank's seconds, the slowest rank's seconds)``, the last an
+    all-reduce MAX over the group on ``parallel.mesh.collective_device()``
+    (this rank's own without a group)."""
+    sync = ((lambda: torch.cuda.synchronize(device)) if torch.device(device).type == "cuda"
+            else (lambda: None))
+    if group is not None:
+        dist.barrier(group=group)
+    sync()
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    own = time.perf_counter() - t0
+    if group is None:
+        return out, own, own
+    from gymca_torch.parallel.mesh import collective_device
+
+    took = torch.tensor([own], dtype=torch.float64, device=collective_device())
+    dist.all_reduce(took, op=dist.ReduceOp.MAX, group=group)
+    return out, own, float(took)
 
 
 def time_launches(run: Callable[[], object], launches: int, kernel: str, reps: int = 3,

@@ -1,12 +1,14 @@
 """``tests/multihost_worker.py``'s checks on the port: a world of 4 gloo
 ranks as 2 "hosts" of 2 ranks (``LOCAL_WORLD_SIZE=2``), spawned as separate
 processes (``tests/torch_parallel_ranks.py``); ``python3 -m
-gymca_torch.bench_scaling --smoke --device-cpu`` under ``torchrun`` with 2
-ranks; and ``tests/torch_multicard.py --device-cpu`` with 4.  Every value compared here is exact: integer counts, small-integer
+gymca_torch.bench_scaling --smoke --device-cpu`` and ``python3 -m
+gymca_torch.bench --smoke --device-cpu`` under ``torchrun`` with 2 ranks;
+and ``tests/torch_multicard.py --device-cpu`` with 4.  Every value compared here is exact: integer counts, small-integer
 sums, and reward sums of the same float32 rewards.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -80,12 +82,40 @@ def test_bench_scaling_smoke_on_two_gloo_ranks():
     assert lines[-1]["metric"] == "bulldozer16_scaling_efficiency"
 
 
+def test_bench_under_torchrun_prints_bench_pys_two_lines_from_rank_0():
+    """``torchrun --nproc-per-node 2 -m gymca_torch.bench --smoke
+    --device-cpu``: every rank exits 0, stdout holds exactly bench.py's two
+    JSON lines (rank 0's alone), and stderr shows the 64 smoke envs sharded
+    over both ranks, each rank's reps and rank 0's Advanced runs."""
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "2", "-m", "gymca_torch.bench", "--smoke", "--device-cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "GYMCA_BENCH_BASELINE_SPS": "1000"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.strip()]
+    assert [ln["metric"] for ln in lines] == ["advanced64_env_steps_per_sec",
+                                              "bulldozer64_env_steps_per_sec"], out.stdout
+    for ln in lines:
+        assert list(ln) == ["metric", "value", "unit", "vs_baseline"]
+        assert ln["unit"] == "env-steps/s" and ln["value"] > 0
+    assert lines[1]["vs_baseline"] == round(lines[1]["value"] / 1000, 2)
+    err = out.stderr
+    assert "[rank 0] [bench] sharding 64 envs over 2 ranks (32 a rank)" in err
+    for r in (0, 1):
+        assert f"[rank {r}] [bench] path=step_batched" in err
+        assert err.count(f"[rank {r}] [bench] rep ") == 3
+    assert "[rank 0] [bench] advanced rep 2" in err and "[rank 1] [bench] advanced" not in err
+
+
 def test_multicard_check_on_four_gloo_ranks():
     """``tests/torch_multicard.py``, the check for a host of several cards,
     rehearsed on 4 gloo ranks at toy sizes: the windy and Bulldozer bands
     equal the whole grids, the (2, 2) mesh equals ``core.step``, the
-    Advanced bands equal the CPU's, the PPO replicas agree, and
-    ``bench_scaling`` reports d = 1, 2 and 4."""
+    Advanced bands equal the CPU's, the PPO replicas agree,
+    ``bench_scaling`` reports d = 1, 2 and 4, and the bench's windy batch
+    sharded over the 4 ranks ends in the states of its run alone, K1 called
+    ``(WARM + REPS) * steps`` times on each rank."""
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
          "4", str(ROOT / "tests" / "torch_multicard.py"), "--device-cpu"],
@@ -95,3 +125,9 @@ def test_multicard_check_on_four_gloo_ranks():
     res = json.loads(lines[-1][len("MULTICARD "):])
     assert res["ok"] and res["world"] == 4 and res["bulldozer_batched_2x2_equal"], res
     assert [s["devices"] for s in res["scaling"]] == [1, 2, 4]
+    assert res["bench_states_equal"] and res["bench_launches_exact_on_every_rank"], res
+    b = res["bench"]
+    assert (b["envs"], b["size"], b["steps"]) == (16, 48, 5)
+    assert len(b["reps_ms_by_rank"]) == 4 and b["value"] > 0 and b["value_alone"] > 0
+    assert b["reps_ms_slowest"] == [max(r[i] for r in b["reps_ms_by_rank"]) for i in range(3)]
+    assert b["done_fraction"] == b["done_fraction_alone"]

@@ -10,7 +10,9 @@ Every comparison is bit for bit (tolerance 0): the spatial steps draw from
 the same key chain as the single-device steps, and the Alexandridis bands
 from the same shard-folded keys as the JAX package on a mesh of the same
 size.  The JAX functions are jitted once per shape and mesh (eager, each
-case cost half a minute of op-by-op compiles).
+case cost half a minute of op-by-op compiles).  The same worlds run
+``gymca_torch.bench``'s windy measure sharded over their ranks, against
+bench.py's sharded branch on as many virtual devices.
 """
 
 import functools
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from gymca_torch import bench
 from gymca_torch.envs.bulldozer import BulldozerCore as TCore
 from gymca_torch.ops.alexandridis import AlexandridisCA as TCA
 from gymca_torch.ops.windy import windy_step as t_windy_step
@@ -35,6 +38,7 @@ from gymca_tpu.parallel.spatial_env import (advanced_step_batched_spatial,
                                             advanced_step_spatial,
                                             bulldozer_step_batched_spatial,
                                             bulldozer_step_spatial, shard_state)
+from test_torch_bulldozer import assert_states_equal
 from torch_parallel_ranks import run_world
 
 EMPTY, TREE, FIRE = 0, 3, 25
@@ -42,6 +46,10 @@ A_TREE, A_FIRE = 1, 2  # the Alexandridis cells (empty 0)
 H, W = 32, 16  # tests/test_spatial_alexandridis.py's grid
 BULL_SIZE, BULL_STEPS, BATCH_ENVS, BATCH_STEPS = 64, 16, 4, 15
 MESHES = [(2, 2), (1, 4), (4, 1)]
+BENCH = {"size": 48, "envs": 8, "steps": 8}  # 48²: one CA period a step at most
+# Per-step reward sums: float32 sums over the envs in another order than
+# XLA's (and, sharded, over the ranks), of rewards in [-1, 0].
+REWARD_RTOL, REWARD_ATOL = 1e-6, 1e-6
 
 
 def kd(k):
@@ -189,6 +197,9 @@ def cases_for(world):
     if world == 8:
         return cases + [("rows", "rows_not_divisible", {"devices": 8, "shape": (30, 16)})]
     cases.append((f"bulldozer{world}", "bulldozer", bulldozer_case(world)))
+    cases.append((f"bench{world}", "bench_windy", {**BENCH, "shard": "1"}))
+    cases.append((f"bench_whole{world}", "bench_windy",
+                  {**BENCH, "shard": "0"} if world == 2 else {**BENCH, "envs": 6, "shard": "1"}))
     cases += [(name, "alexandridis", inp) for name, (d, inp) in ALEX.items() if d == world]
     if world == 2:
         cases.append(("advanced", "advanced", {"devices": 2, "size": 32, "envs": ADV_ENVS,
@@ -342,6 +353,119 @@ def test_bulldozer_batched_spatial_matches_jax_on_every_mesh(world, mesh_shape):
         for i, (a, b) in enumerate(zip(got, rank0(world, 4, f"batched{other}"))):
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=f"{other} step {i} {k}")
+
+
+# --- the bench's sharded branch -----------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def jax_bench_sharded(n_dev):
+    """bench.py:44-52 and :75-116 with ``step = jax.vmap(core.step)``, which
+    the fused step equals bit for bit (``tests/test_pallas.py``), on
+    ``n_dev`` of conftest's virtual devices where bench.py takes every
+    device it sees: the reset states and the jitted run, which returns the
+    end states beside the reward sums."""
+    from jax.sharding import PartitionSpec as P
+
+    from gymca_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from gymca_tpu.parallel.mesh import shard_env_batch
+    from gymca_tpu.parallel.sharded import shard_map
+
+    size, num_envs, steps = BENCH["size"], BENCH["envs"], BENCH["steps"]
+    core = JCore(size, size)
+    key = jax.random.key(0)
+    keys = jax.random.split(key, num_envs)
+    states = jax.vmap(core.initial_state)(keys)
+    step = jax.vmap(core.step)
+
+    # bench.py:78-96, n_dev given
+    assert num_envs % n_dev == 0
+    mesh = j_make_mesh(n_dev)
+    states = shard_env_batch(mesh, states)
+    inner = step
+    out_struct = jax.eval_shape(
+        inner, states, jnp.zeros((num_envs, 2), jnp.int32)
+    )
+    step = shard_map(
+        inner, mesh=mesh,
+        in_specs=(jax.tree.map(lambda _: P("data"), states), P("data")),
+        out_specs=jax.tree.map(lambda _: P("data"), out_struct),
+    )
+
+    def body(carry, _):
+        states, key = carry
+        key, k_act = jax.random.split(key)
+        actions = jax.random.randint(k_act, (num_envs, 2), 0, 2, dtype=jnp.int32)
+        actions = actions.at[:, 0].set(
+            jax.random.randint(jax.random.fold_in(k_act, 1), (num_envs,), 0, 9)
+        )
+        states, out = step(states, actions)
+        return (states, key), out.reward.sum()
+
+    @jax.jit
+    def run(states, key):
+        (states, _), rewards = jax.lax.scan(body, (states, key), None, length=steps)
+        return states, rewards
+
+    return run(states, jax.random.fold_in(key, 2 + bench.REPS - 1))  # the last run
+
+
+def assert_alone_equal(got, n):
+    """Rank 0's run of the world equals its run alone on the same envs."""
+    assert got["states"].grid.shape[0] == got["alone_states"].grid.shape[0] == n
+    for k in ("grid", "key", "done", "steps_elapsed", "reward_accumulated"):
+        assert torch.equal(getattr(got["states"], k), getattr(got["alone_states"], k)), k
+    for k, v in got["alone_states"].context.items():
+        assert torch.equal(got["states"].context[k], v), k
+    assert torch.equal(got["grid"], got["alone_grid"])
+
+
+@pytest.mark.parametrize("devices", [2, 4])
+def test_bench_sharded_windy_run_matches_bench_pys_sharded_branch(world, devices):
+    """``measure_windy`` over ``devices`` gloo ranks, 8 envs of 48², 8 steps:
+    each rank steps its 8/d envs through K1's wrapper in every run, and the
+    last run's states gathered from the ranks equal bench.py's sharded
+    branch on as many devices in every leaf, bit for bit after
+    ``materialize_grid``, and the port's run of the 8 envs alone; the
+    reward sums over the ranks are within ``REWARD_RTOL``; rank 0 says that
+    it shards."""
+    n, steps, per = BENCH["envs"], BENCH["steps"], BENCH["envs"] // devices
+    ranks = world(devices)
+    got = rank0(world, devices, f"bench{devices}")
+    for r in ranks:
+        b = r[f"bench{devices}"]
+        assert b["calls"] == [per] * (bench.WARM + bench.REPS) * steps
+        assert b["seconds"] == got["seconds"] and b["done_fraction"] == got["done_fraction"]
+        assert all(s >= o for s, o in zip(b["seconds"], b["own_seconds"]))
+    assert f"[rank 0] [bench] sharding {n} envs over {devices} ranks ({per} a rank)" in \
+        got["stderr"]
+    j_end, j_rewards = jax_bench_sharded(devices)
+    assert_states_equal(got["states"], j_end, grid=got["grid"], msg=f"{devices} ranks")
+    assert_alone_equal(got, n)
+    np.testing.assert_allclose(got["reward_sums"].numpy(), np.asarray(j_rewards),
+                               rtol=REWARD_RTOL, atol=REWARD_ATOL)
+    np.testing.assert_allclose(got["reward_sums"].numpy(), got["alone_reward_sums"].numpy(),
+                               rtol=REWARD_RTOL, atol=REWARD_ATOL)
+    assert got["done_fraction"] == float(np.asarray(j_end.done).mean())
+    assert got["value"] == n * steps / min(got["seconds"][bench.WARM:])
+
+
+@pytest.mark.parametrize("devices,why", [(2, "GYMCA_BENCH_SHARD=0"),
+                                         (4, "6 envs do not divide over 4 ranks")])
+def test_bench_unsharded_batch_runs_whole_on_rank_0(world, devices, why):
+    """``GYMCA_BENCH_SHARD=0`` on 2 ranks, and 6 envs on 4: rank 0 steps the
+    whole batch, equal to its run alone, and says why; the other ranks step
+    nothing and return at once."""
+    ranks = world(devices)
+    got = rank0(world, devices, f"bench_whole{devices}")
+    n = got["states"].grid.shape[0]
+    assert got["calls"] == [n] * (bench.WARM + bench.REPS) * BENCH["steps"]
+    assert f"[rank 0] [bench] not sharding ({why}): rank 0 steps all {n} envs" in got["stderr"]
+    assert "sharding" not in got["stderr"].replace("not sharding", "")
+    assert_alone_equal(got, n)
+    for r in ranks[1:]:
+        b = r[f"bench_whole{devices}"]
+        assert not b["returned"] and b["calls"] == [] and b["stderr"] == ""
 
 
 # --- the Alexandridis steps -----------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Checks of ``gymca_torch.parallel`` across several ranks of one host:
 halo exchange on real bands, the batched mesh, the Advanced step against
-the CPU, data-parallel PPO's replicas, and ``bench_scaling`` up to the
-world size.  Not a pytest file: run it under torchrun, one rank a card,
+the CPU, data-parallel PPO's replicas, ``bench_scaling`` up to the world
+size, and ``gymca_torch.bench``'s windy measure sharded over the ranks.
+Not a pytest file: run it under torchrun, one rank a card,
 
     torchrun --standalone --nproc-per-node 4 tests/torch_multicard.py          # NCCL
     torchrun --standalone --nproc-per-node 4 tests/torch_multicard.py --device-cpu
+    torchrun --standalone --nproc-per-node 4 tests/torch_multicard.py --checks bench
 
 (``--device-cpu``: gloo ranks at toy sizes; ``tests/test_torch_multihost.py``
-runs it so).  Rank 0 prints the card's ``nvidia-smi`` name and power limit
-and one ``MULTICARD {...}`` JSON line; the exit code is non-zero unless
-every check held.
+runs it so; ``--checks`` runs only the checks named).  Rank 0 prints the
+card's ``nvidia-smi`` name and power limit and one ``MULTICARD {...}`` JSON
+line; the exit code is non-zero unless every check held.
 """
 
 from __future__ import annotations
@@ -27,12 +29,21 @@ from torch.distributed.device_mesh import DeviceMesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from gymca_torch import bench_scaling, config, rng  # noqa: E402
+from gymca_torch import bench, bench_scaling, config, rng  # noqa: E402
 from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs, PPOArgs  # noqa: E402
+import gymca_torch.envs.bulldozer as bulldozer  # noqa: E402
+from gymca_torch.core.env import tree_map  # noqa: E402
 from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv  # noqa: E402
 from gymca_torch.envs.bulldozer import BulldozerCore  # noqa: E402
 from gymca_torch.ops.windy import windy_step  # noqa: E402
-from gymca_torch.parallel.mesh import initialize_distributed, make_2d_mesh, make_mesh  # noqa: E402
+from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step  # noqa: E402
+from gymca_torch.ops.windy_kernel import windy_fused_step  # noqa: E402
+from gymca_torch.parallel.mesh import (  # noqa: E402
+    collective_device,
+    initialize_distributed,
+    make_2d_mesh,
+    make_mesh,
+)
 from gymca_torch.parallel.sharded import DataParallelPPO  # noqa: E402
 from gymca_torch.parallel.spatial import gather_rows, shard_rows, windy_step_spatial  # noqa: E402
 from gymca_torch.parallel.spatial_env import (  # noqa: E402
@@ -47,6 +58,8 @@ from gymca_torch.parallel.spatial_env import (  # noqa: E402
 WINDY = ((8192, 1024), (64, 32))
 BULLDOZER, ADVANCED, PPO_SIZE = (4096, 64), (1024, 64), (64, 16)
 BATCH = ((64, 256), (8, 64))  # (envs, size) on the (2, 2) mesh
+BENCH = ((4096, 256, 200), (16, 48, 5))  # (envs, size, steps) of the sharded bench
+CHECKS = ("windy", "bulldozer", "batched", "advanced", "ppo", "scaling", "bench")
 
 
 def windy_on_bands(mesh, dev, g, shape):
@@ -151,9 +164,66 @@ def ppo_replicas(mesh, dev, size, world):
             "metrics_finite": finite, "grad_all_reduces": dp.trainer.grad_all_reduces}
 
 
+def bench_sharded(dev, n, size, steps, world):
+    """``gymca_torch.bench``'s windy measure sharded over the world's ranks,
+    then, on rank 0, the same ``n`` envs alone (no group): the last run's
+    end states gathered from the ranks equal the run alone's in every leaf
+    and after ``materialize_grid``, bit for bit, and so does the done
+    fraction over all ``n`` envs; each rank's K1 calls are
+    ``(WARM + REPS) * steps`` of ``n / world`` envs, and on a card K1's
+    launch counter reads as many and K2's none."""
+    calls, real = [], bulldozer.windy_fused_step
+
+    def counted(*args, **kw):
+        calls.append(int(args[0].shape[0]))
+        return real(*args, **kw)
+
+    windy_fused_step.launches = alexandridis_fused_step.launches = 0
+    bulldozer.windy_fused_step = counted
+    try:
+        m = bench.measure_windy(size, n, steps, dev, dist.group.WORLD)
+    finally:
+        bulldozer.windy_fused_step = real
+    runs = (bench.WARM + bench.REPS) * steps
+    launches = {"windy": windy_fused_step.launches,
+                "alexandridis": alexandridis_fused_step.launches}
+    exact = calls == [n // world] * runs and (
+        dev.type != "cuda" or launches == {"windy": runs, "alexandridis": 0})
+    exact = torch.tensor([int(exact)], device=collective_device())
+    dist.all_reduce(exact, op=dist.ReduceOp.MIN)
+    equal = torch.zeros(1, dtype=torch.int64, device=collective_device())
+    last = m["runs"][-1]
+    states = tree_map(lambda x: gather_rows(x, None), last["states"])
+    own = torch.tensor([r["own_seconds"] for r in m["runs"]], dtype=torch.float64,
+                       device=collective_device())
+    every = [torch.empty_like(own) for _ in range(world)]
+    dist.all_gather(every, own)
+    out = {}
+    if dist.get_rank() == 0:
+        core = bulldozer.BulldozerCore(size, size, device=dev)
+        alone = bench.measure_windy(size, n, steps, dev)
+        a = alone["runs"][-1]["states"]
+        leaves = []
+        tree_map(lambda x, y: leaves.append(torch.equal(x, y)), states, a)
+        equal[0] = (all(leaves) and m["done_fraction"] == alone["done_fraction"]
+                    and torch.equal(core.materialize_grid(states), core.materialize_grid(a)))
+        out = {"envs": n, "size": size, "steps": steps, "value": m["value"],
+               "value_alone": alone["value"], "done_fraction": m["done_fraction"],
+               "done_fraction_alone": alone["done_fraction"],
+               "launches_rank0": launches,
+               "reps_ms_slowest": [r["seconds"] * 1e3 for r in m["runs"][bench.WARM:]],
+               "reps_ms_by_rank": [[float(t) * 1e3 for t in e[bench.WARM:]] for e in every],
+               "reps_ms_alone": [r["seconds"] * 1e3 for r in alone["runs"][bench.WARM:]]}
+    dist.broadcast(equal, 0)
+    return {"bench_states_equal": bool(equal), "bench_launches_exact_on_every_rank":
+            bool(exact), "bench": out or None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device-cpu", action="store_true", help="gloo ranks at toy sizes")
+    ap.add_argument("--checks", nargs="+", choices=CHECKS, default=list(CHECKS),
+                    help="the checks to run (default: all)")
     a = ap.parse_args(argv)
     cpu = a.device_cpu
     if cpu:
@@ -167,20 +237,27 @@ def main(argv=None) -> int:
         mesh = make_mesh()
         g = torch.Generator(device=dev)
         g.manual_seed(0)
-        t0 = time.perf_counter()
-        out = {"world": world, "backend": dist.get_backend(),
-               "windy_equal": windy_on_bands(mesh, dev, g, WINDY[pick]),
-               "bulldozer_spatial_equal": bulldozer_on_bands(mesh, dev, g, BULLDOZER[pick]),
-               "bulldozer_batched_2x2_equal": (bulldozer_on_2x2(dev, g, *BATCH[pick])
-                                               if world == 4 else None),
-               "advanced_equals_cpu": advanced_against_cpu(mesh, dev, ADVANCED[pick]),
-               **ppo_replicas(mesh, dev, PPO_SIZE[pick], world)}
         steps = ["--smoke"] if cpu else ["--steps", "200"]
-        out["scaling"] = bench_scaling.run(bench_scaling.parse_args(steps))
+        checks = {
+            "windy": lambda: {"windy_equal": windy_on_bands(mesh, dev, g, WINDY[pick])},
+            "bulldozer": lambda: {"bulldozer_spatial_equal": bulldozer_on_bands(
+                mesh, dev, g, BULLDOZER[pick])},
+            "batched": lambda: {"bulldozer_batched_2x2_equal": (
+                bulldozer_on_2x2(dev, g, *BATCH[pick]) if world == 4 else None)},
+            "advanced": lambda: {"advanced_equals_cpu": advanced_against_cpu(
+                mesh, dev, ADVANCED[pick])},
+            "ppo": lambda: ppo_replicas(mesh, dev, PPO_SIZE[pick], world),
+            "scaling": lambda: {"scaling": bench_scaling.run(bench_scaling.parse_args(steps))},
+            "bench": lambda: bench_sharded(dev, *BENCH[pick], world),
+        }
+        t0 = time.perf_counter()
+        out = {"world": world, "backend": dist.get_backend(), "checks": a.checks}
+        for name in a.checks:
+            out.update(checks[name]())
         out["seconds"] = time.perf_counter() - t0
-        checks = [v for k, v in out.items() if k.endswith(("_equal", "_cpu", "_rank", "_finite"))
-                  and v is not None]
-        ok = all(checks)
+        held = [v for k, v in out.items() if k.endswith(("_equal", "_cpu", "_rank", "_finite"))
+                and v is not None]
+        ok = all(held)
         if lead:
             if not cpu:
                 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

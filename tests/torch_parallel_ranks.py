@@ -277,6 +277,61 @@ def env_batch(inp):
             "scalar_kept": scalar is obs[1]["shared_context"]["p_fire"], "info": blocks}
 
 
+# --- the bench's sharded windy runs ---------------------------------------------------------
+
+
+def bench_windy(inp):
+    """``gymca_torch.bench.measure_windy`` on every rank of the world, with
+    ``GYMCA_BENCH_SHARD=inp["shard"]``, its stderr captured and the envs each
+    K1 call steps counted where ``envs.bulldozer`` calls it.  The last run's
+    end states gathered over the ranks when the batch was sharded, and, on
+    rank 0, the same run made alone (no group) on the same envs."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    import gymca_torch.envs.bulldozer as bulldozer
+    from gymca_torch import bench
+    from gymca_torch.core.env import tree_map
+    from gymca_torch.parallel.spatial import gather_rows
+
+    size, envs, steps = inp["size"], inp["envs"], inp["steps"]
+    core = bulldozer.BulldozerCore(size, size, device="cpu")
+    calls, real = [], bulldozer.windy_fused_step
+
+    def counted(*args, **kw):
+        calls.append(int(args[0].shape[0]))
+        return real(*args, **kw)
+
+    err = io.StringIO()
+    bulldozer.windy_fused_step = counted
+    os.environ["GYMCA_BENCH_SHARD"] = inp["shard"]
+    try:
+        with contextlib.redirect_stderr(err):
+            out = bench.measure_windy(size, envs, steps, "cpu", dist.group.WORLD)
+            sharded = bench.windy_shard(envs, dist.group.WORLD) is None
+    finally:
+        bulldozer.windy_fused_step = real
+        del os.environ["GYMCA_BENCH_SHARD"]
+    res = {"stderr": err.getvalue(), "calls": calls, "returned": out is not None}
+    if out is None:
+        return res
+    last = out["runs"][-1]
+    states = last["states"]
+    if sharded:
+        states = tree_map(lambda x: gather_rows(x, None), states)
+    res.update(states=states, grid=core.materialize_grid(states),
+               reward_sums=last["reward_sums"], done_fraction=out["done_fraction"],
+               value=out["value"], seconds=[r["seconds"] for r in out["runs"]],
+               own_seconds=[r["own_seconds"] for r in out["runs"]])
+    if dist.get_rank() == 0:
+        alone = bench.measure_windy(size, envs, steps, "cpu")["runs"][-1]
+        res.update(alone_states=alone["states"], alone_grid=core.materialize_grid(alone["states"]),
+                   alone_reward_sums=alone["reward_sums"])
+    return res
+
+
 # --- multi-host ---------------------------------------------------------------------------
 
 
