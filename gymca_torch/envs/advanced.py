@@ -63,6 +63,7 @@ from gymca_torch.ops.alexandridis_kernel import alexandridis_fused_step
 from gymca_torch.ops.move_modify import DEFAULT_DIRECTIONS, ModifyDousing, Move
 from gymca_torch.ops.repeat_ca import modf
 from gymca_torch.ops.stencil import NEIGHBOR_OFFSETS, telescoped_box_coeffs
+from gymca_torch.utils.metrics import span
 
 __all__ = ["AdvancedForestFireBulldozerEnv", "TERRAIN_KEYS"]
 
@@ -304,6 +305,7 @@ class AdvancedForestFireBulldozerEnv:
 
     # --------------------------------------------------------------- initial state
 
+    @span("fresh_state")
     def _initial_per_env_state(self, keys):
         """Fresh ``(cell_grid int8, fire_age, position)`` for ``len(keys)``
         envs, one per key."""
@@ -465,6 +467,7 @@ class AdvancedForestFireBulldozerEnv:
                                 per_env["dousing_count"], position)
         return rgb, extended
 
+    @span("observe")
     def _observe(self, grid, position, full_action, per_env):
         """The RGB of :meth:`build_observation_on_extensions`.  With
         extensions off every extension channel is zero and the display is the
@@ -569,6 +572,7 @@ class AdvancedForestFireBulldozerEnv:
 
     # --------------------------------------------------------------- public API
 
+    @span("stateless_step")
     def stateless_step(self, action, obs, info):
         """One step of every env: ``(obs, reward, terminated, truncated,
         info)``; ``action`` is (N, 2 + n_registries) int."""
@@ -597,6 +601,7 @@ class AdvancedForestFireBulldozerEnv:
         info["reward_accumulated"] = info["reward_accumulated"] + reward
         return (rgb, context), reward, next_done, truncated, info
 
+    @span("conditional_reset")
     def conditional_reset(self, step_tuple, action):
         """Auto-reset terminated envs with fresh initial states drawn from
         the threaded per-env keys.  The merge always runs (no host test of

@@ -41,6 +41,7 @@ from gymca_torch.ops.move_modify import (
 from gymca_torch.ops.repeat_ca import RepeatCA, modf
 from gymca_torch.ops.windy import WindyForestFire
 from gymca_torch.ops.windy_kernel import windy_fused_step, windy_weights_from_roll
+from gymca_torch.utils.metrics import span
 
 __all__ = ["BulldozerCore", "BulldozerMDP", "ForestFireBulldozerEnv", "DEFAULT_WIND",
            "parse_wind", "derive_step_key", "default_grid_dtype"]
@@ -336,6 +337,7 @@ class BulldozerCore(CAEnvCore):
         whose step can span several CA periods take the eager step."""
         return self.repeater.max_repeats == 1
 
+    @span("step_batched")
     def step_batched(self, states: EnvState, actions: torch.Tensor):
         """Batched step over N envs through kernel K1.
 

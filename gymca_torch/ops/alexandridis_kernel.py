@@ -43,6 +43,7 @@ import torch
 
 from gymca_torch import _build, rng
 from gymca_torch.ops.stencil import NEIGHBOR_OFFSETS, multi_box_sums, shift
+from gymca_torch.utils.metrics import span
 
 __all__ = ["alexandridis_fused_step", "alexandridis_fused_step_plain",
            "alexandridis_draws", "alexandridis_ignition", "alexandridis_rule",
@@ -195,6 +196,7 @@ def _launcher():
     return fn
 
 
+@span("ca")
 def alexandridis_fused_step(
     grid: torch.Tensor,  # (N, H, W) int8
     fire_age: torch.Tensor,  # (N, H, W) float32

@@ -25,6 +25,7 @@ from gymca_torch.ops.windy import (
     assert_windy_encoding,
     windy_step_from_success,
 )
+from gymca_torch.utils.metrics import span
 
 __all__ = ["windy_fused_step", "windy_fused_step_plain", "windy_weights_from_roll",
            "shared_memory_bytes", "CLUSTER_BLOCKS"]
@@ -132,6 +133,7 @@ def _launcher():
     return fn
 
 
+@span("ca")
 def windy_fused_step(
     grid: torch.Tensor,  # (N, H, W) int8 or int32, updated in place
     weights: torch.Tensor,  # (N, 8) int32 — windy_weights_from_roll output

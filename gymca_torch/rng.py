@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from gymca_torch.config import resolve_device
+from gymca_torch.utils.metrics import span
 
 __all__ = [
     "key",
@@ -93,12 +94,14 @@ def _hash_counters(keys: torch.Tensor, shape: Sequence[int]):
     return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
 
 
+@span("rng")
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)``."""
     b1, b2 = _hash_counters(keys, (num,))
     return torch.stack([b1, b2], dim=-1)
 
 
+@span("rng")
 def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a scalar ``data`` in ``[0, 2**32)``."""
     d = int(data) & _M32
@@ -109,6 +112,7 @@ def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+@span("rng")
 def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element: ``(..., *shape)`` int64 in ``[0, 2**32)``
     (``prng.py::_threefry_random_bits_partitionable``, bit width 32)."""
@@ -116,6 +120,7 @@ def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
+@span("rng")
 def uniform(keys: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform in ``[minval, maxval)`` (``random.py::_uniform``)."""
@@ -163,6 +168,7 @@ def _mul32(a: torch.Tensor, b) -> torch.Tensor:
     return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & _M32
 
 
+@span("rng")
 def randint(keys: torch.Tensor, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """int32 draws in ``[minval, maxval)`` (``random.py::_randint``)."""
@@ -249,6 +255,7 @@ def xla_log(v: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isinf(v), v, out)
 
 
+@span("rng")
 def exponential(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """float32 Exp(1) draws (``random.py::_exponential``): ``-log1p(-u)``
     with ``log1p`` as XLA's CPU backend rounds it."""
@@ -286,12 +293,14 @@ def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return _SQRT2_F32 * _erf_inv(_uniform_from_bits(bits, _NORMAL_LO, 1.0))
 
 
+@span("rng")
 def normal(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """float32 standard normal draws (``random.py::_normal_real``):
     ``sqrt(2) * erf_inv(u)`` for ``u`` uniform in ``[nextafter(-1, 0), 1)``."""
     return _normal_from_bits(random_bits(keys, shape))
 
 
+@span("rng")
 def poisson(keys: torch.Tensor, lam: float, shape: Sequence[int] = (),
             max_count: Optional[int] = None) -> torch.Tensor:
     """int32 Poisson(``lam``) draws for ``lam`` < 10 (``random.py::
@@ -320,6 +329,7 @@ def poisson(keys: torch.Tensor, lam: float, shape: Sequence[int] = (),
     return count
 
 
+@span("rng")
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)``: a permutation of ``0 .. n-1``
     (int64, on the key's device) for one ``(2,)`` key.
@@ -348,6 +358,7 @@ def _cumulative(p: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     return torch.cumsum(torch.tensor(p, dtype=torch.float32), 0).to(device)
 
 
+@span("rng")
 def choice(keys: torch.Tensor, n: int, shape: Sequence[int],
            p: Sequence[float]) -> torch.Tensor:
     """Indices in ``[0, n)`` drawn with replacement with probabilities ``p``

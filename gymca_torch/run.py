@@ -27,7 +27,8 @@ the env for ``min(--steps, 10000)`` steps.  The stepping loop
 ``--gif``, the captured frames; the host writers then compose the rich
 frames (agent observation | true grid with a wind arrow | dousing map) into
 one GIF per env (``save_video``, Pillow) and draw the terrain heatmaps
-(matplotlib).  ``--profile`` writes a ``torch.profiler`` trace of the loop.
+(matplotlib).  ``--profile`` writes a ``torch.profiler`` trace of the loop,
+with the program's spans as ``gymca.<name>`` ranges.
 
 Runs on card ``--device`` (0); ``--device-cpu`` runs on the CPU instead,
 and without it and without a CUDA device it raises.

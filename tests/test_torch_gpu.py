@@ -985,3 +985,89 @@ def test_bench_on_the_card_equals_its_cpu_run(cuda, path):
     for name, v in leaves(got):
         np.testing.assert_array_equal(v, want_leaves[name], err_msg=name)
     assert on_card["done_fraction"] == on_cpu["done_fraction"]
+
+
+@pytest.mark.gpu
+def test_steps_with_spans_on_equal_the_steps_with_them_off(cuda):
+    """Spans on inside a profiler session, with any host wait an error: a
+    windy and an Advanced step equal the spans-off steps bit for bit, and
+    every kernel of the windy step was launched inside a program span (K1's
+    inside ``gymca.ca``, the key chain's inside ``gymca.rng``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gymca_torch.core.env import tree_map
+    from gymca_torch.utils import metrics
+
+    n = 64
+    core = BulldozerCore(256, 256)
+    start = core.initial_state(torch.as_tensor(key_data(25, n)).to(cuda))
+    r = np.random.default_rng(26)
+    windy_actions = torch.tensor(np.stack([r.integers(0, 9, n), r.integers(0, 2, n)], -1),
+                                 dtype=torch.int32, device=cuda)
+    env = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(3), num_envs=4)
+    obs, info = env.reset()
+    actions = torch.tensor([[1, 1, 0], [4, 0, 0], [8, 1, 0], [2, 0, 0]], dtype=torch.int32,
+                           device=cuda)
+
+    states = [start.clone(), start.clone()]  # step_batched updates the grid in place
+
+    def windy():
+        return core.step_batched(states.pop(), windy_actions)
+
+    terminated = torch.tensor([True, False, True, False], device=cuda)
+
+    def advanced():
+        out = env.stateless_step(actions, obs, info)
+        return env.conditional_reset(out[:2] + (terminated,) + out[3:], actions)
+
+    def leaves(tree):
+        found = []
+        tree_map(lambda x: found.append(x) if isinstance(x, torch.Tensor) else None, tree)
+        return found
+
+    off = [leaves(windy()), leaves(advanced())]
+    metrics.reset()
+    metrics.enable()
+    sessions, on = [], []
+    try:
+        for step in (windy, advanced):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    on.append(leaves(step()))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            sessions.append(prof.profiler.kineto_results.events())
+    finally:
+        metrics.disable()
+    assert metrics.snapshot()["step_batched/ca"][0] == 1
+    for a, b in zip(on, off):
+        assert len(a) == len(b) > 5
+        assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    # A kernel's host launch: the runtime call of the kernel's own (CUDA)
+    # correlation id, else the torch operation the profiler links it to.
+    events = sessions[0]
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    launches = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
+    ops = {e.correlation_id(): e.start_ns() for e in cpu
+           if not e.name().startswith("cu") and e.linked_correlation_id() == 0}
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+             if e.device_type() == DeviceType.CPU and e.is_user_annotation()
+             and e.name().startswith(metrics.SPAN_PREFIX)]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation() and not e.name().startswith(("Memcpy", "Memset"))]
+    assert len(kernels) > 100
+    within = {}
+    for k in kernels:
+        t = launches.get(k.correlation_id(), ops.get(k.linked_correlation_id()))
+        assert t is not None, k.name()
+        names = {name for s, e, name in spans if s <= t < e}
+        assert names, k.name()
+        for name in names:
+            within.setdefault(name, []).append(k.name())
+    assert len(within["gymca.step_batched"]) == len(kernels)
+    assert sum("windy_" in k for k in within["gymca.ca"]) == 2
+    assert len(within["gymca.rng"]) > 100
