@@ -63,9 +63,18 @@ Phases, each fatal on failure:
    tile edges, burning tiles beside fire-free ones, fire only in a tile's
    1-cell halo, all fire and none; radius 2 (halo 2), radius 7 at 512² and
    radius 32;
+5b. ``[rng]``: the key chain's threefry kernel (``csrc/threefry.cu``)
+   against the eager int64 chain on the same card keys, bit for bit, one
+   launch a draw: ``derive_step_key`` over 4096 keys, the windy reset's
+   six-way split, and the Advanced step's ``fold_in``, ``uniform``,
+   ``randint`` and fresh-grid ``choice`` over 64 keys (64 x 256²); then its
+   device time for a split of 4096 keys and a uniform over 64 x 256² cells
+   beside its bound (int32 ALU or bytes);
 6. slice 1's main path: reset 4096 envs, step them with random actions from
    a CUDA ``torch.Generator`` under ``torch.cuda.set_sync_debug_mode("error")``,
-   the launch counters zeroed before and read after; then ``step_batched``
+   the launch counters zeroed before and read after (and 4 threefry
+   launches a step, one a draw of ``derive_step_key``; 10 a step on slice
+   2's path); then ``step_batched``
    against the eager batched step ``step`` on 64 envs, bit for bit, and K1
    against its plain version on inputs recorded from the main path; then
    ``[bench]`` (7b, below); then its times (below);
@@ -249,6 +258,7 @@ Phases, each fatal on failure:
     describing every kernel, one per path (the Alexandridis
     kernel's and K1's with their launches and their errors on each path),
     then ``{"step": ...}``, ``{"advanced_step": ...}``, ``{"bench": ...}``,
+    ``{"rng": ...}``,
     ``{"train": ...}``, ``{"helicopter": ...}``, ``{"eval": ...}``,
     ``{"pinecones": ...}``, ``{"legacy": ...}``, ``{"curve": ...}``,
     ``{"policy": ...}``, ``{"parallel": ...}`` and ``{"tools": ...}``;
@@ -2348,6 +2358,84 @@ def bench_phase(card):
     return out
 
 
+# Integer operations an element of the threefry kernel: the hash (the key's
+# third word 1, the first injection 2, 20 rounds of add, funnel shift and
+# xor, 5 later injections of 2 adds), then a split's nothing more, or a
+# uniform's xor, shift and or.
+THREEFRY_HASH_OPS = 1 + 2 + 20 * 3 + 5 * 2
+THREEFRY_REPEATS = 20
+
+
+def rng_phase(card):
+    """``[rng]``: the key chain's threefry kernel against the eager int64
+    chain on the same card keys at the two cells' sizes, bit for bit, with
+    one launch a draw; then its device time at 4096 keys (a split) and over
+    a 64 x 256² fresh grid (a uniform) beside its bound."""
+    from gymca_torch import rng
+    from gymca_torch.envs.bulldozer import derive_step_key
+    from gymca_torch.probes.timing import cuda_ms, time_launches
+
+    t_phase = time.perf_counter()
+    keys = rng.split(rng.key(SEED), N_ENVS)
+    adv_keys = rng.split(rng.key(SEED + 1), ADV_ENVS)
+    fresh = rng.split(adv_keys)[:, 0]  # a strided slice, as the env reads it
+    cases = [  # (label, draw, launches)
+        (f"derive_step_key over {N_ENVS} keys", lambda: derive_step_key(keys), 4),
+        (f"split({N_ENVS} keys, 6)", lambda: rng.split(keys, 6), 1),
+        (f"fold_in({ADV_ENVS} keys, 7)", lambda: rng.fold_in(adv_keys, 7), 1),
+        (f"uniform({ADV_ENVS} keys)", lambda: rng.uniform(adv_keys), 1),
+        (f"randint({ADV_ENVS} keys, 1, 8)", lambda: rng.randint(adv_keys, (), 1, 8), 1),
+        (f"choice({ADV_ENVS} keys, {ADV_SIZE}x{ADV_SIZE}) (the fresh grids)",
+         lambda: rng.choice(fresh, 3, (ADV_SIZE, ADV_SIZE), (0.1, 0.9, 0.0)), 1),
+        (f"uniform({N_ENVS} keys, 3x3, [0, 5))", lambda: rng.uniform(keys, (3, 3), 0.0, 5.0), 1),
+    ]
+    checked = []
+    for label, draw, launches in cases:
+        before = rng.threefry_launch.launches
+        got = draw()
+        launched = rng.threefry_launch.launches - before
+        launch = rng.threefry_launch
+        rng.threefry_launch = rng.threefry_plain
+        try:
+            want = draw()
+        finally:
+            rng.threefry_launch = launch
+        def words(t):  # bit patterns: -0 is not 0
+            return t.view(torch.int32) if t.is_floating_point() else t
+
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        differ = sum(int(words(g).ne(words(w)).sum()) for g, w in pairs)
+        log(f"[rng] {label}: {launched} threefry launch(es), {differ} elements differ from "
+            f"the eager chain")
+        if launched != launches or differ:
+            fail(f"[rng] {label}: expected {launches} launch(es) and no difference, got "
+                 f"{launched} and {differ}")
+        checked.append(label)
+
+    n_grid = ADV_ENVS * ADV_SIZE * ADV_SIZE
+    timings = {}
+    for label, args, elements, ops, out_bytes in (
+            (f"split of {N_ENVS} keys", (keys, 2, "keys"), 2 * N_ENVS, THREEFRY_HASH_OPS, 16),
+            (f"uniform over {ADV_ENVS} x {ADV_SIZE}² cells",
+             (adv_keys, ADV_SIZE * ADV_SIZE, "uniform"), n_grid, THREEFRY_HASH_OPS + 3, 4)):
+        t = time_launches(lambda: [rng.threefry_launch(*args) for _ in range(THREEFRY_REPEATS)],
+                          THREEFRY_REPEATS, "threefry_kernel")
+        plain_us = cuda_ms(lambda: rng.threefry_plain(*args), 3) * 1e3
+        ops_us = elements * ops / ki.INT32_OPS_PER_S * 1e6
+        bytes_us = elements * out_bytes / ki.HBM_BYTES_PER_S * 1e6
+        bound_us, by = max((ops_us, "int32 ALU"), (bytes_us, "bytes"))
+        log(f"[time] [{card}] threefry {label}: {t['device_us']} us/launch device, "
+            f"{t['host_us']} us/launch host (events kept {t['seen']}); bound {bound_us} us "
+            f"by {by} ({elements} elements x {ops} int32 ops; {bytes_us} us of bytes), "
+            f"{100 * bound_us / t['device_us']:.1f}% of it; the eager chain (plain version) "
+            f"{plain_us} us a call (CUDA events)")
+        timings[label] = {"device_us": t["device_us"], "host_us": t["host_us"],
+                          "bound_us": bound_us, "bound_by": by, "plain_us": plain_us}
+    out = {"checked": checked, "timings": timings, "seconds": time.perf_counter() - t_phase}
+    log(f"[rng] phase took {out['seconds']:.1f}s")
+    return out
+
+
 # --- main ----------------------------------------------------------------------------
 
 
@@ -2461,6 +2549,10 @@ def main() -> int:
         for shape, lay, rad in k2_cases)
     mark("alexandridis_checks")
 
+    # 5b. the key chain's threefry kernel against the eager chain
+    rng_out = rng_phase(card)
+    mark("rng")
+
     # 6. slice 1's main path
     core = BulldozerCore(H, W)
     keys = rng.split(rng.key(SEED, device="cuda"), N_ENVS)
@@ -2475,6 +2567,7 @@ def main() -> int:
     states = reset_states.clone()
     torch.cuda.synchronize()
     windy_fused_step.launches = alexandridis_fused_step.launches = 0
+    rng.threefry_launch.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         states, out = ki.run_steps(core, states, actions)
@@ -2482,12 +2575,16 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode(0)
     launches = windy_fused_step.launches
     others = alexandridis_fused_step.launches
+    key_launches = rng.threefry_launch.launches
     torch.cuda.synchronize()
     log(f"[main] {MAIN_STEPS} steps of step_batched under sync_debug_mode=error: "
-        f"{launches} windy kernel launches ({others} alexandridis), done fraction "
-        f"{states.done.float().mean().item()}")
+        f"{launches} windy kernel launches ({others} alexandridis, {key_launches} threefry), "
+        f"done fraction {states.done.float().mean().item()}")
     if launches != MAIN_STEPS:
         fail(f"expected {MAIN_STEPS} windy kernel launches on the main path, got {launches}")
+    if key_launches != 4 * MAIN_STEPS:
+        fail(f"expected {4 * MAIN_STEPS} threefry launches on the main path, got "
+             f"{key_launches}")
     if out.reward.shape != (N_ENVS,) or not torch.isfinite(out.reward).all():
         fail("main path rewards are not finite (N,) values")
 
@@ -2573,6 +2670,7 @@ def main() -> int:
     adv_acts = ki.adv_actions(gen, ADV_STEPS, ADV_ENVS)
     torch.cuda.synchronize()
     windy_fused_step.launches = alexandridis_fused_step.launches = 0
+    rng.threefry_launch.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         adv_obs, adv_info, adv_last = ki.adv_run(env, reset_obs, reset_info, adv_acts)
@@ -2580,6 +2678,10 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode(0)
     adv_launches = alexandridis_fused_step.launches
     others = windy_fused_step.launches
+    adv_key_launches = rng.threefry_launch.launches
+    if adv_key_launches != 10 * ADV_STEPS:
+        fail(f"expected {10 * ADV_STEPS} threefry launches on the Advanced path, got "
+             f"{adv_key_launches}")
     torch.cuda.synchronize()
     rgb, reward = adv_obs[0], adv_last[1]
     fires = (adv_obs[1]["per_env_context"]["true_grid"] == 2).sum(dim=(1, 2)).float()
@@ -2751,6 +2853,7 @@ def main() -> int:
     mark("tools")
 
     # 18-19. result lines
+    grid_draw = rng_out["timings"][f"uniform over {ADV_ENVS} x {ADV_SIZE}² cells"]
     kernels = [{
         "name": "windy_sparse",
         "route": "cuda",
@@ -2799,6 +2902,19 @@ def main() -> int:
         "bound_ms": adv_bound_ms,
         "bound_by": adv_bound_by,
         "library_ms": None,
+    }, {
+        "name": "threefry",
+        "route": "cuda",
+        "source": "gymca_torch/csrc/threefry.cu",
+        "replaces": None,  # the JAX package's key chain is plain XLA
+        "launches": key_launches,
+        "launches_by_path": {"bulldozer": key_launches, "advanced": adv_key_launches},
+        "max_abs_err": 0,  # [rng] fails on any differing element
+        "ms": grid_draw["device_us"] / 1e3,
+        "plain_ms": grid_draw["plain_us"] / 1e3,
+        "bound_ms": grid_draw["bound_us"] / 1e3,
+        "bound_by": grid_draw["bound_by"],
+        "library_ms": None,
     }] + probe_kernels
     phases["total"] = time.perf_counter() - t_start
     log("[phases] seconds: " + json.dumps(phases))
@@ -2811,6 +2927,7 @@ def main() -> int:
         log(json.dumps({"advanced_step": {"env_steps_per_sec": adv_best,
                                           **{k: adv_prof[k] for k in old_keys}}}))
     log(json.dumps({"bench": bench_out}))
+    log(json.dumps({"rng": rng_out}))
     log(json.dumps({"train": train}))
     log(json.dumps({"helicopter": heli}))
     log(json.dumps({"eval": evaluation}))

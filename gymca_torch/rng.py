@@ -10,17 +10,25 @@ must match the reference exactly.  This module reproduces jax 0.9.0's
 ``_randint``, ``choice`` with ``p``, ``_shuffle``).
 
 Keys are ``(..., 2)`` tensors of key data: the two uint32 words of a jax key,
-held in int64 (torch's uint32 arithmetic is incomplete on both CPU and CUDA)
-and wrapped to 32 bits explicitly after every operation that can carry.
+held in int64 (torch's uint32 arithmetic is incomplete on both CPU and CUDA).
 Every function is vectorised over the leading key dimensions.
 
+Every hash goes through :func:`threefry_launch`.  Keys on the CPU take its
+plain version, :func:`threefry_plain`: the eager int64 hash, wrapped to 32
+bits explicitly after every operation that can carry, which is also the
+spec.  Keys on a CUDA device launch ``gymca_torch/csrc/threefry.cu``, one
+launch per ``split``, ``fold_in``, ``random_bits``, ``uniform`` and
+``randint`` (the inner split and both bit streams in the one launch);
+``normal``, ``exponential``, ``poisson``, ``permutation`` and ``choice``
+compose those with eager float, sort or search operations.
+
 Inputs that no reference draw has to reproduce (random actions in the
-smoke, test noise) come from a ``torch.Generator`` instead: this chain
-costs hundreds of small kernels per call.
+smoke, test noise) come from a ``torch.Generator`` instead.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -28,12 +36,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gymca_torch import _build
 from gymca_torch.config import resolve_device
 from gymca_torch.utils.metrics import span
 
 __all__ = [
     "key",
     "threefry2x32",
+    "threefry_launch",
+    "threefry_plain",
     "split",
     "fold_in",
     "random_bits",
@@ -80,51 +91,148 @@ def threefry2x32(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
     return x1, x2
 
 
-def _hash_counters(keys: torch.Tensor, shape: Sequence[int]):
-    """Threefry of the counters ``0 .. prod(shape)-1`` (as the 64-bit iota
-    ``prng.py::iota_2x32_shape`` splits into hi/lo words) under every key."""
-    shape = tuple(int(d) for d in shape)
-    size = math.prod(shape)
-    if size >= 2**32:
+# The forms a hash pass writes, by their code in csrc/threefry.cu: the
+# element type, and the trailing dimensions an element adds.
+_FORMS = {"keys": (0, torch.int64, (2,)), "bits": (1, torch.int64, ()),
+          "uniform": (2, torch.float32, ()), "randint": (3, torch.int32, ())}
+
+
+def threefry_plain(keys: torch.Tensor, count: int, form: str, *, base: int = 0,
+                   minval=0.0, maxval=1.0) -> torch.Tensor:
+    """:func:`threefry_launch`'s function in eager int64 torch ops, on any
+    device; the CPU path and the spec of the kernel."""
+    if form == "randint":
+        pair = threefry_plain(keys, 2, "keys")
+        higher = threefry_plain(pair[..., 0, :], count, "bits")
+        lower = threefry_plain(pair[..., 1, :], count, "bits")
+        return _randint_from_bits(higher, lower, minval, maxval)
+    # the 64-bit iota of prng.py::iota_2x32_shape: high words 0 below 2**32
+    lo = torch.arange(base, base + count, dtype=torch.int64, device=keys.device)
+    b1, b2 = threefry2x32(keys[..., 0, None], keys[..., 1, None], torch.zeros_like(lo), lo)
+    if form == "keys":
+        return torch.stack([b1, b2], dim=-1)
+    if form == "bits":
+        return b1 ^ b2
+    return _uniform_from_bits(b1 ^ b2, minval, maxval)
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("threefry").threefry_launch
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [ptr, i64, i64, i64, i64, ctypes.c_uint32, ctypes.c_int, ptr,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_uint32, ctypes.c_int32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def threefry_launch(keys: torch.Tensor, count: int, form: str, *, base: int = 0,
+                    minval=0.0, maxval=1.0) -> torch.Tensor:
+    """Threefry-2x32 of the counters ``base .. base + count - 1`` (high
+    words 0) under each of the ``(..., 2)`` int64 ``keys``, in one pass.
+
+    ``form`` says what the pass returns for each key and counter:
+    ``"keys"``: ``(..., count, 2)`` int64 hash pairs (``split``, base 0;
+    ``fold_in``, base ``data`` and count 1); ``"bits"``: ``(..., count)``
+    int64 ``b1 ^ b2`` in ``[0, 2**32)``; ``"uniform"``: ``(..., count)``
+    float32 in ``[minval, maxval)`` from those bits; ``"randint"``:
+    ``(..., count)`` int32 in ``[minval, maxval)`` (the key's split and
+    both bit streams of ``random.py::_randint``, base 0).
+
+    Keys on the CPU take :func:`threefry_plain`.  Keys on a CUDA device
+    launch ``csrc/threefry.cu`` on the current stream (strided keys read in
+    place; ``threefry_launch.launches`` counts the launches; an empty
+    result launches nothing) or raise."""
+    if form not in _FORMS:
+        raise ValueError(f"form must be one of {sorted(_FORMS)}, got {form!r}")
+    if keys.dtype != torch.int64:
+        raise ValueError(f"keys must be int64 key data, got {keys.dtype}")
+    if keys.dim() < 1 or keys.shape[-1] != 2:
+        raise ValueError(f"keys must have shape (..., 2), got {tuple(keys.shape)}")
+    count, base = int(count), int(base)
+    if count < 0 or base < 0 or base + count > 2**32:
         raise ValueError("more than 2**32 draws per key")
-    lo = torch.arange(size, dtype=torch.int64, device=keys.device).reshape(shape)
-    lead = keys.shape[:-1] + (1,) * len(shape)
-    k1 = keys[..., 0].reshape(lead)
-    k2 = keys[..., 1].reshape(lead)
-    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    if form == "randint" and not -(2**31) <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"need int32 bounds with minval < maxval, got [{minval}, {maxval})")
+    dev = keys.device
+    if dev.type == "cpu":
+        return threefry_plain(keys, count, form, base=base, minval=minval, maxval=maxval)
+    if dev.type != "cuda":
+        raise ValueError(f"threefry_launch runs on CPU or CUDA keys, got {dev}")
+    if dev.index != torch.cuda.current_device():  # the kernel runs on the current device
+        with torch.cuda.device(dev):
+            return threefry_launch(keys, count, form, base=base, minval=minval,
+                                   maxval=maxval)
+
+    code, dtype, tail = _FORMS[form]
+    lead = tuple(keys.shape[:-1])
+    out = torch.empty(lead + (count,) + tail, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    flat = keys if keys.dim() == 2 else keys.reshape(-1, 2)  # strided keys stay views
+    lo = scale = 0.0
+    affine = span = mult = imin = 0
+    if form == "uniform":
+        lo, scale = _affine(minval, maxval)
+        affine = int((lo, scale) != (0.0, 1.0))
+    elif form == "randint":
+        imin, span = int(minval), int(maxval) - int(minval)
+        mult = _randint_multiplier(span)
+    # The current stream's handle as an int: torch.cuda.current_stream()
+    # builds a Stream object, a third of a launch's host time on the card.
+    err = _launcher()(
+        flat.data_ptr(), flat.shape[0], flat.stride(0), flat.stride(1), count, base, code,
+        out.data_ptr(), lo, scale, affine, span, mult, imin,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    if err != 0:
+        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    threefry_launch.launches += 1
+    return out
+
+
+threefry_launch.launches = 0
+
+
+def _shape(shape: Sequence[int]) -> Tuple[int, ...]:
+    return tuple(int(d) for d in shape)
 
 
 @span("rng")
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)``."""
-    b1, b2 = _hash_counters(keys, (num,))
-    return torch.stack([b1, b2], dim=-1)
+    return threefry_launch(keys, num, "keys")
 
 
 @span("rng")
 def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a scalar ``data`` in ``[0, 2**32)``."""
-    d = int(data) & _M32
-    b1, b2 = threefry2x32(
-        keys[..., 0], keys[..., 1],
-        torch.zeros_like(keys[..., 0]), torch.full_like(keys[..., 0], d),
-    )
-    return torch.stack([b1, b2], dim=-1)
+    return threefry_launch(keys, 1, "keys", base=int(data) & _M32)[..., 0, :]
 
 
 @span("rng")
 def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element: ``(..., *shape)`` int64 in ``[0, 2**32)``
     (``prng.py::_threefry_random_bits_partitionable``, bit width 32)."""
-    b1, b2 = _hash_counters(keys, shape)
-    return b1 ^ b2
+    shape = _shape(shape)
+    return threefry_launch(keys, math.prod(shape), "bits").reshape(keys.shape[:-1] + shape)
 
 
 @span("rng")
 def uniform(keys: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniform in ``[minval, maxval)`` (``random.py::_uniform``)."""
-    return _uniform_from_bits(random_bits(keys, shape), minval, maxval)
+    shape = _shape(shape)
+    return threefry_launch(keys, math.prod(shape), "uniform", minval=minval,
+                           maxval=maxval).reshape(keys.shape[:-1] + shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _affine(minval: float, maxval: float) -> Tuple[float, float]:
+    """:func:`uniform`'s float32 ``minval`` and ``maxval - minval``, held in
+    Python floats: no host-to-device copy."""
+    return float(np.float32(minval)), float(np.float32(maxval) - np.float32(minval))
 
 
 def _uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
@@ -132,9 +240,7 @@ def _uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
     """:func:`uniform`'s values from its 32 random bits per element."""
     float_bits = (bits >> 9) | 0x3F800000  # mantissa bits under exponent 0
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    # Bounds as float32 values held in Python floats: no host-to-device copy.
-    lo = float(np.float32(minval))
-    scale = float(np.float32(maxval) - np.float32(minval))
+    lo, scale = _affine(minval, maxval)
     if (lo, scale) == (0.0, 1.0):
         return floats
     # XLA fuses floats * scale + lo into one multiply-add, which rounds once.
@@ -168,21 +274,29 @@ def _mul32(a: torch.Tensor, b) -> torch.Tensor:
     return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & _M32
 
 
+def _randint_multiplier(span: int) -> int:
+    """``random.py::_randint``'s multiplier: ``(2**16 % span)**2`` as a
+    uint32 product, modulo ``span``."""
+    multiplier = 2**16 % span
+    return ((multiplier * multiplier) & _M32) % span  # uint32 product
+
+
+def _randint_from_bits(higher: torch.Tensor, lower: torch.Tensor, minval: int,
+                      maxval: int) -> torch.Tensor:
+    """:func:`randint`'s values from its two bit streams."""
+    span = maxval - minval
+    multiplier = _randint_multiplier(span)
+    offset = (_mul32(higher % span, multiplier) + lower % span) & _M32
+    return (minval + offset % span).to(torch.int32)
+
+
 @span("rng")
 def randint(keys: torch.Tensor, shape: Sequence[int], minval: int,
             maxval: int) -> torch.Tensor:
     """int32 draws in ``[minval, maxval)`` (``random.py::_randint``)."""
-    if not -(2**31) <= minval < maxval <= 2**31 - 1:
-        raise ValueError(f"need int32 bounds with minval < maxval, got "
-                         f"[{minval}, {maxval})")
-    pair = split(keys)
-    higher = random_bits(pair[..., 0, :], shape)
-    lower = random_bits(pair[..., 1, :], shape)
-    span = maxval - minval
-    multiplier = 2**16 % span
-    multiplier = ((multiplier * multiplier) & _M32) % span  # uint32 product
-    offset = (_mul32(higher % span, multiplier) + lower % span) & _M32
-    return (minval + offset % span).to(torch.int32)
+    shape = _shape(shape)
+    return threefry_launch(keys, math.prod(shape), "randint", minval=minval,
+                           maxval=maxval).reshape(keys.shape[:-1] + shape)
 
 
 def _f32(bits: int) -> float:

@@ -991,8 +991,11 @@ def test_bench_on_the_card_equals_its_cpu_run(cuda, path):
 def test_steps_with_spans_on_equal_the_steps_with_them_off(cuda):
     """Spans on inside a profiler session, with any host wait an error: a
     windy and an Advanced step equal the spans-off steps bit for bit, and
-    every kernel of the windy step was launched inside a program span (K1's
-    inside ``gymca.ca``, the key chain's inside ``gymca.rng``)."""
+    every kernel launch of the windy step lies inside a program span (K1's
+    two inside ``gymca.ca``, the key chain's four threefry launches inside
+    ``gymca.rng``).  Launches are the host's runtime calls: after earlier
+    sessions in a process the profiler drops a few kernels' device events
+    (on the card, the step's first threefry kernels), never the host's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1047,27 +1050,246 @@ def test_steps_with_spans_on_equal_the_steps_with_them_off(cuda):
         assert len(a) == len(b) > 5
         assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
 
-    # A kernel's host launch: the runtime call of the kernel's own (CUDA)
-    # correlation id, else the torch operation the profiler links it to.
+    # A kernel's launch: the host's runtime call (cudaLaunchKernel, K1's
+    # cudaLaunchKernelExC), named by the device kernel of its correlation id
+    # where the profiler kept one.
     events = sessions[0]
     cpu = [e for e in events if e.device_type() == DeviceType.CPU]
-    launches = {e.correlation_id(): e.start_ns() for e in cpu if e.name().startswith("cu")}
-    ops = {e.correlation_id(): e.start_ns() for e in cpu
-           if not e.name().startswith("cu") and e.linked_correlation_id() == 0}
-    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
-             if e.device_type() == DeviceType.CPU and e.is_user_annotation()
-             and e.name().startswith(metrics.SPAN_PREFIX)]
-    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
-               and not e.is_user_annotation() and not e.name().startswith(("Memcpy", "Memset"))]
-    assert len(kernels) > 100
+    launches = {e.correlation_id(): e.start_ns() for e in cpu
+                if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    kernels = {e.correlation_id(): e.name() for e in events
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+               and not e.name().startswith(("Memcpy", "Memset"))}
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in cpu
+             if e.is_user_annotation() and e.name().startswith(metrics.SPAN_PREFIX)]
+    assert set(kernels) <= set(launches)
+    assert len(set(kernels) & set(launches)) > 100
     within = {}
-    for k in kernels:
-        t = launches.get(k.correlation_id(), ops.get(k.linked_correlation_id()))
-        assert t is not None, k.name()
+    for corr, t in launches.items():
         names = {name for s, e, name in spans if s <= t < e}
-        assert names, k.name()
+        assert names, kernels.get(corr, corr)
         for name in names:
-            within.setdefault(name, []).append(k.name())
-    assert len(within["gymca.step_batched"]) == len(kernels)
-    assert sum("windy_" in k for k in within["gymca.ca"]) == 2
-    assert len(within["gymca.rng"]) > 100
+            within.setdefault(name, []).append(corr)
+    assert len(within["gymca.step_batched"]) == len(launches)
+    assert len(within["gymca.ca"]) == 2
+    assert all("windy_" in kernels[c] for c in within["gymca.ca"] if c in kernels)
+    assert len(within["gymca.rng"]) == 4  # one threefry launch a draw
+    assert all("threefry_kernel" in kernels[c] for c in within["gymca.rng"] if c in kernels)
+    assert any(c in kernels for c in within["gymca.rng"])
+
+
+# --- the key chain's threefry kernel (csrc/threefry.cu) ------------------------------
+
+
+def tensor_leaves(tree):
+    from gymca_torch.core.env import tree_map
+
+    found = []
+    tree_map(lambda x: found.append(x) if isinstance(x, torch.Tensor) else None, tree)
+    return found
+
+
+def same_bits(got, want, what=""):
+    assert (got.device, got.dtype, got.shape) == (want.device, want.dtype, want.shape), what
+    if got.is_floating_point():  # bit patterns: -0 is not 0
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        got, want = got.view(as_int), want.view(as_int)
+    assert torch.equal(got, want), what
+
+
+def kernel_and_eager(draw, monkeypatch):
+    """``draw()`` through the kernel, the launches it made, and ``draw()``
+    again with every hash on the eager int64 path on the same keys."""
+    before = rng.threefry_launch.launches
+    got = draw()
+    launched = rng.threefry_launch.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(rng, "threefry_launch", rng.threefry_plain)
+        want = draw()
+    return got, launched, want
+
+
+def card_keys(seed, n, cuda):
+    return torch.as_tensor(key_data(seed, n)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num,n", [(1, 4096), (2, 4096), (6, 4096), (4096, 16), (3, None)])
+def test_threefry_split_equals_the_eager_chain_on_the_card(cuda, monkeypatch, num, n):
+    keys = card_keys(40, n, cuda) if n else rng.key(40)
+    got, launched, want = kernel_and_eager(lambda: rng.split(keys, num), monkeypatch)
+    same_bits(got, want)
+    assert launched == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", [0, 1, 7, 8, 2**32 - 1])
+def test_threefry_fold_in_equals_the_eager_chain_on_the_card(cuda, monkeypatch, data):
+    keys = card_keys(41, 4096, cuda)
+    got, launched, want = kernel_and_eager(lambda: rng.fold_in(keys, data), monkeypatch)
+    same_bits(got, want)
+    assert launched == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,shape", [(64, ()), (64, (3, 3)), (64, (256, 256)), (64, (0,)),
+                                     (4096, (3, 3))])
+def test_threefry_random_bits_equal_the_eager_chain_on_the_card(cuda, monkeypatch, n, shape):
+    keys = card_keys(42, n, cuda)
+    got, launched, want = kernel_and_eager(lambda: rng.random_bits(keys, shape), monkeypatch)
+    same_bits(got, want)
+    assert launched == (1 if got.numel() else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.0, 5.0), (rng._NORMAL_LO, 1.0), (1e-20, 3.0)])
+@pytest.mark.parametrize("n,shape", [(4096, (3, 3)), (64, (256, 256))])
+def test_threefry_uniform_equals_the_eager_chain_on_the_card(cuda, monkeypatch, lo, hi, n,
+                                                             shape):
+    keys = card_keys(43, n, cuda)
+    got, launched, want = kernel_and_eager(lambda: rng.uniform(keys, shape, lo, hi),
+                                           monkeypatch)
+    same_bits(got, want)
+    assert launched == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(0, 1), (0, 7), (0, 8), (4, 89), (0, 2**31 - 1),
+                                   (-(2**31), 2**31 - 1)])
+def test_threefry_randint_equals_the_eager_chain_on_the_card(cuda, monkeypatch, lo, hi):
+    keys = card_keys(44, 4096, cuda)
+    got, launched, want = kernel_and_eager(lambda: rng.randint(keys, (7,), lo, hi),
+                                           monkeypatch)
+    same_bits(got, want)
+    assert launched == 1
+
+
+COMPOSED_DRAWS = {
+    "choice": (lambda k: rng.choice(k, 3, (256, 256), (0.1, 0.9, 0.0)), 1),
+    "permutation": (lambda k: rng.permutation(k[0], 65536), 4),
+    "poisson": (lambda k: rng.poisson(k, 1.0, (64, 64), max_count=8), 16),
+    "normal": (lambda k: rng.normal(k, (64, 64)), 1),
+    "exponential": (lambda k: rng.exponential(k, (64, 64)), 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(COMPOSED_DRAWS))
+def test_threefry_composed_draws_equal_the_eager_chain_on_the_card(cuda, monkeypatch, name):
+    draw, launches = COMPOSED_DRAWS[name]
+    keys = card_keys(45, 64, cuda)
+    got, launched, want = kernel_and_eager(lambda: draw(keys), monkeypatch)
+    same_bits(got, want)
+    assert launched == launches
+
+
+@pytest.mark.gpu
+def test_threefry_on_sliced_and_broadcast_keys_on_the_card(cuda, monkeypatch):
+    """The key chain's operands are slices of a split: read in place, they
+    draw what their contiguous copies and the eager chain draw."""
+    pair = rng.split(card_keys(46, 4096, cuda), 3)
+    draws = [lambda x: rng.split(x, 2), lambda x: rng.fold_in(x, 8),
+             lambda x: rng.random_bits(x, (3, 3)), lambda x: rng.uniform(x, (5,), 0.0, 5.0),
+             lambda x: rng.randint(x, (), 0, 85)]
+    for k in (pair[:, 1], pair[::3, :, 0:2][:, 2], pair.transpose(0, 1),
+              rng.key(47).expand(4096, 2)):
+        assert not k.is_contiguous()
+        for draw in draws:
+            got, launched, want = kernel_and_eager(lambda: draw(k), monkeypatch)
+            same_bits(got, want)
+            same_bits(got, draw(k.contiguous()))
+            assert launched == 1
+
+
+@pytest.mark.gpu
+def test_threefry_wrapper_on_the_card(cuda):
+    """An empty draw launches nothing; a bad operand raises before any
+    launch; no draw waits for the device."""
+    keys = card_keys(48, 8, cuda)
+    before = rng.threefry_launch.launches
+    assert rng.uniform(keys, (0, 3)).shape == (8, 0, 3)
+    assert rng.split(keys[:0], 4).shape == (0, 4, 2)
+    for bad in (keys.to(torch.int32), keys[:, :1]):
+        with pytest.raises(ValueError):
+            rng.threefry_launch(bad, 4, "bits")
+    assert rng.threefry_launch.launches == before
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rng.randint(rng.fold_in(rng.split(keys, 3)[:, 1], 5), (9,), 0, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.device.type == "cuda" and rng.threefry_launch.launches == before + 3
+
+
+def counted_run(run, monkeypatch):
+    """``run()`` through the kernel with any eager hash on the card an error,
+    and its launches; then ``run()`` with every hash eager."""
+    counter = rng.threefry_launch
+    with monkeypatch.context() as m:
+        m.setattr(rng, "threefry2x32", None)  # the eager hash is never called
+        before = counter.launches
+        got = run()
+        torch.cuda.synchronize()
+        launched = counter.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(rng, "threefry_launch", rng.threefry_plain)
+        want = run()
+    assert len(got) == len(want) > 10
+    for i, (g, w) in enumerate(zip(got, want)):
+        same_bits(g, w, i)
+    return launched
+
+
+@pytest.mark.gpu
+def test_windy_steps_with_the_kernel_equal_the_eager_key_chain(cuda, monkeypatch):
+    """4096 envs at 256², reset and 1000 ``step_batched`` steps: the keys
+    drawn by the kernel (4 launches a step) and by the eager chain give the
+    same states and outputs, leaf for leaf."""
+    n, steps = 4096, 1000
+    core = BulldozerCore(256, 256)
+    keys = rng.split(rng.key(49), n)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(50)
+    actions = ki.draw_actions(gen, steps, n)
+    counter, reset_launches = rng.threefry_launch, []
+
+    def run():
+        before = counter.launches
+        states = core.initial_state(keys)
+        reset_launches.append(counter.launches - before)
+        start = tensor_leaves(states.clone())
+        rewards, dones = [], []
+        for a in actions:
+            states, out = core.step_batched(states, a)
+            rewards.append(out.reward)
+            dones.append(states.done)
+        return start + tensor_leaves((states, out)) + [torch.stack(rewards),
+                                                        torch.stack(dones)]
+
+    launched = counted_run(run, monkeypatch)
+    assert reset_launches[0] > 0 and launched == reset_launches[0] + 4 * steps
+
+
+@pytest.mark.gpu
+def test_advanced_steps_with_the_kernel_equal_the_eager_key_chain(cuda, monkeypatch):
+    """64 envs at 256², reset and 200 steps of ``stateless_step`` +
+    ``conditional_reset``: kernel keys (10 launches a step) and eager keys
+    give the same leaves."""
+    n, steps = 64, 200
+    env = AdvancedForestFireBulldozerEnv(256, 256, key=rng.key(51), num_envs=n)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(52)
+    actions = ki.adv_actions(gen, steps, n)
+    counter, reset_launches = rng.threefry_launch, []
+
+    def run():
+        before = counter.launches
+        obs, info = env.reset()
+        reset_launches.append(counter.launches - before)
+        start = tensor_leaves((obs, info))
+        sums = []
+        obs, info, last = ki.adv_run(env, obs, info, actions, sums)
+        return start + tensor_leaves((obs, info, last)) + [torch.stack(sums)]
+
+    launched = counted_run(run, monkeypatch)
+    assert reset_launches[0] > 0 and launched == reset_launches[0] + 10 * steps

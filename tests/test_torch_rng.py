@@ -223,3 +223,106 @@ def test_grid_spec_contains_and_validates():
         tspaces.GridSpec(shape=(2, 2))
     with pytest.raises(ValueError):
         tspaces.GridSpec(values=(0, 1), probs=(1.0,), shape=(2, 2))
+
+
+# --- the hash pass's wrapper (``rng.threefry_launch``) on the CPU ------------------
+
+
+def test_cpu_keys_take_the_eager_path_and_launch_nothing():
+    """Every draw on CPU keys runs ``threefry_plain`` and leaves the launch
+    counter where it was; the wrapper equals its plain version there."""
+    keys = torch_keys(key_data(13, 4))
+    before = rng.threefry_launch.launches
+    rng.split(keys, 3), rng.fold_in(keys, 2**32 - 1), rng.random_bits(keys, (2, 3))
+    rng.uniform(keys, (5,), 0.0, 5.0), rng.randint(keys, (5,), -3, 80)
+    rng.choice(keys, 3, (4, 4), (0.2, 0.5, 0.3)), rng.permutation(keys[0], 50)
+    rng.poisson(keys, 1.0, (3,), max_count=4), rng.normal(keys, (3,))
+    rng.exponential(keys, (3,))
+    assert rng.threefry_launch.launches == before
+    for form, kw in [("keys", {"base": 9}), ("bits", {}), ("uniform", {"minval": -2.0}),
+                     ("randint", {"minval": 4, "maxval": 11})]:
+        assert torch.equal(rng.threefry_launch(keys, 6, form, **kw),
+                           rng.threefry_plain(keys, 6, form, **kw))
+
+
+@pytest.mark.parametrize("case", ["dtype", "last_dim", "scalar", "device", "form", "count",
+                                  "base", "randint_bounds"])
+def test_threefry_launch_rejects_bad_operands(case):
+    keys = torch_keys(key_data(14, 3))
+    args, kw = (keys, 4, "bits"), {}
+    if case == "dtype":
+        args = (keys.to(torch.int32), 4, "bits")
+    elif case == "last_dim":
+        args = (torch.zeros((3, 3), dtype=torch.int64), 4, "bits")
+    elif case == "scalar":
+        args = (torch.zeros((), dtype=torch.int64), 4, "bits")
+    elif case == "device":
+        args = (keys.to("meta"), 4, "bits")
+    elif case == "form":
+        args = (keys, 4, "words")
+    elif case == "count":
+        args = (keys, 2**32 + 1, "bits")
+    elif case == "base":
+        args, kw = (keys, 2, "keys"), {"base": 2**32 - 1}
+    else:
+        args, kw = (keys, 4, "randint"), {"minval": 5, "maxval": 5}
+    before = rng.threefry_launch.launches
+    with pytest.raises(ValueError):
+        rng.threefry_launch(*args, **kw)
+    assert rng.threefry_launch.launches == before
+
+
+@pytest.mark.parametrize("form,tail,dtype", [("keys", (2,), torch.int64),
+                                             ("bits", (), torch.int64),
+                                             ("uniform", (), torch.float32),
+                                             ("randint", (), torch.int32)])
+def test_an_empty_draw_is_empty_and_launches_nothing(form, tail, dtype):
+    keys = torch_keys(key_data(15, 3))
+    kw = {"minval": 0, "maxval": 7} if form == "randint" else {}
+    before = rng.threefry_launch.launches
+    for k, count, shape in [(keys, 0, (3, 0)), (keys[:0], 5, (0, 5))]:
+        out = rng.threefry_launch(k, count, form, **kw)
+        assert out.shape == shape + tail and out.dtype == dtype
+    assert rng.random_bits(keys, (0, 4)).shape == (3, 0, 4)
+    assert rng.threefry_launch.launches == before
+
+
+def test_strided_and_broadcast_keys_draw_as_their_copies():
+    """Slices of a split (the key chain's operands) and an expanded key
+    give what their contiguous copies give."""
+    keys = torch_keys(key_data(16, 5))
+    pair = rng.split(keys, 3)
+    for k in (pair[:, 1], pair[1:4, :, 0:2][:, 2], keys[0].expand(4, 2), pair.transpose(0, 1)):
+        assert not k.is_contiguous()
+        for draw in (lambda x: rng.split(x, 2), lambda x: rng.fold_in(x, 8),
+                     lambda x: rng.uniform(x, (3,)), lambda x: rng.randint(x, (), 0, 85)):
+            assert torch.equal(draw(k), draw(k.contiguous()))
+
+
+def test_the_cells_steps_make_four_and_ten_hash_passes(monkeypatch):
+    """A windy ``step_batched`` calls the hash pass 4 times and an Advanced
+    ``stateless_step`` + ``conditional_reset`` 10 times: on the card, one
+    kernel launch each (``threefry_launch.launches``)."""
+    from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+    from gymca_torch.envs.bulldozer import BulldozerCore
+
+    calls = []
+    launch = rng.threefry_launch
+
+    def counted(*args, **kw):
+        calls.append(args[2])
+        return launch(*args, **kw)
+
+    core = BulldozerCore(64, 64, device="cpu")  # one CA update a step at most
+    states = core.initial_state(rng.split(rng.key(17, device="cpu"), 3))
+    env = AdvancedForestFireBulldozerEnv(16, 16, key=rng.key(18, device="cpu"), num_envs=3,
+                                         use_fused_ca=True, device="cpu")
+    obs, info = env.reset()
+    monkeypatch.setattr(rng, "threefry_launch", counted)
+    core.step_batched(states, torch.tensor([[4, 1], [0, 0], [8, 1]], dtype=torch.int32))
+    assert calls == ["keys", "keys", "keys", "uniform"]
+    calls.clear()
+    a = torch.tensor([[1, 1, 0], [4, 0, 0], [8, 1, 0]], dtype=torch.int32)
+    env.conditional_reset(env.stateless_step(a, obs, info), a)
+    assert calls == ["keys", "keys", "keys", "uniform", "randint",
+                     "keys", "keys", "uniform", "keys", "randint"]
