@@ -43,6 +43,18 @@ What the port does differently:
   trainer's pure iteration does (``tests/test_ppo.py:71``): at
   ``scripts/run``'s defaults with TF32 off, cuDNN's default algorithms
   did not repeat on an H100.
+
+Spans (``gymca_torch.utils.metrics.span``, off unless enabled) mark the
+iteration's layers: ``rollout`` (:meth:`PPOTrainer.rollout`, the env's own
+spans under it), ``policy`` (:meth:`PPOTrainer.get_action_and_value`),
+``gae`` (``_compute_gae``, the bootstrap value and the recurrence),
+``update`` (``_update_ppo``), ``loss_grad`` (each minibatch's
+:func:`value_and_grad`) and ``optimizer`` (:meth:`PPOTrainer.
+apply_gradients`).  Host-int counters on the trainer count the work, spans
+on or off: ``samples_collected`` (env samples, envs x rollout steps),
+``samples_forward`` (samples through the networks without a gradient: the
+policy's and GAE's bootstrap) and ``samples_trained`` (samples through
+forward and backward, minibatch size x minibatches).
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from gymca_torch.agents import optim
 from gymca_torch.agents.args import Args
 from gymca_torch.agents.networks import Actor, Critic, Network, param_dict
 from gymca_torch.config import resolve_device
+from gymca_torch.utils.metrics import span
 
 __all__ = ["AgentState", "Storage", "EpisodeStatistics", "PPOTrainer", "gae",
            "value_and_grad", "run_rollout_loop", "load_actor", "fire_centroid",
@@ -312,6 +325,7 @@ class PPOTrainer:
         self.device = dev = resolve_device(device)
         self.process_group = process_group
         self.grad_all_reduces = 0
+        self.samples_collected = self.samples_forward = self.samples_trained = 0
         if torch.device(env.device).type != dev.type:
             raise ValueError(f"the env runs on {env.device}, the trainer on {dev}")
         self.env = env
@@ -390,10 +404,12 @@ class PPOTrainer:
     def _value(self, params, hidden):
         return functional_call(self.critic, params["critic_params"], (hidden,))[:, 0]
 
+    @span("policy")
     def get_action_and_value(self, agent_state, obs, key):
         """Sample per-head actions via the Gumbel trick (jax_ppo.py:866-899)."""
         grid_obs, context = obs
         params = agent_state.params
+        self.samples_forward += grid_obs.shape[0]
         with torch.no_grad():
             hidden = self._torso(params, grid_obs, self._policy_features(context))
             actions, logprobs = [], []
@@ -520,6 +536,7 @@ class PPOTrainer:
     def _step_once(self, carry):
         agent_state, stats, obs, done, info, key = carry
         action, logprob, value, key = self.get_action_and_value(agent_state, obs, key)
+        self.samples_collected += action.shape[0]
         step_tuple = self.env.stateless_step(action, obs, info)
         stats = self._update_episode_stats(stats, action, obs, step_tuple[4])
         next_obs, reward, next_done, _, next_info = self.env.conditional_reset(step_tuple,
@@ -550,8 +567,10 @@ class PPOTrainer:
 
     # -------------------------------------------------------------------- GAE
 
+    @span("gae")
     def _compute_gae(self, agent_state, next_obs, next_done, storage):
         params = agent_state.params
+        self.samples_forward += next_obs[0].shape[0]
         with torch.no_grad():
             next_value = self._value(params, self._torso(params, next_obs[0],
                                                          self._policy_features(next_obs[1])))
@@ -599,6 +618,7 @@ class PPOTrainer:
             loss = loss - ks_coef * demo_logp.mean()
         return loss, (pg_loss, v_loss, entropy_loss, approx_kl)
 
+    @span("optimizer")
     def apply_gradients(self, agent_state, grads):
         """One optimizer step (flax ``TrainState.apply_gradients``)."""
         params, opt_state = optim.adam_update(
@@ -607,6 +627,7 @@ class PPOTrainer:
         return agent_state.replace(params=params, opt_state=opt_state,
                                    step=agent_state.step + 1)
 
+    @span("update")
     def _update_ppo(self, agent_state, storage, key, ks_coef=0.0, critic_only=False):
         ppo = self.args.ppo
         flat = storage.replace(**{f.name: getattr(storage, f.name).flatten(0, 1)
@@ -622,10 +643,12 @@ class PPOTrainer:
                                      for f in dataclasses.fields(flat)})
                 # advantages broadcast across the action heads (jax_ppo.py:1066-1072)
                 advantages = mb.advantages[:, None].expand(-1, self.n_action_heads)
-                loss, aux, grads = value_and_grad(
-                    self._ppo_loss, agent_state.params, (mb.grid_obs, mb.position_obs),
-                    mb.actions, mb.logprobs, advantages, mb.returns, mb.values,
-                    mb.demo_actions, ks_coef)
+                self.samples_trained += idx.shape[0]
+                with span("loss_grad"):
+                    loss, aux, grads = value_and_grad(
+                        self._ppo_loss, agent_state.params, (mb.grid_obs, mb.position_obs),
+                        mb.actions, mb.logprobs, advantages, mb.returns, mb.values,
+                        mb.demo_actions, ks_coef)
                 if critic_only:
                     # critic-warmup phase: zero torso and actor grads go through
                     # the same chain, so the moments and the count advance
@@ -646,6 +669,7 @@ class PPOTrainer:
 
     # --------------------------------------------------------------- iteration
 
+    @span("rollout")
     def rollout(self, agent_state, stats, obs, done, info, key):
         """``num_ppo_steps`` env steps under the current policy:
         ``(carry, storage)`` with storage leaves (T, N, ...)."""

@@ -10,7 +10,8 @@ metrics dict of Python numbers per iteration, so logging adds no device
 sync.
 
 ``span(name)`` marks a layer of the program (the env entry points, the key
-chain, the CA launch, the fresh states, the observation).  Spans are off
+chain, the CA launch, the fresh states, the observation; the trainer's
+rollout, policy, GAE, update, loss and gradients, optimizer).  Spans are off
 unless :func:`enable` turned them on; an off span costs one test of a
 module flag.  On, each span counts its calls and host nanoseconds in memory
 under the path of the program spans enclosing it (``snapshot()``), and

@@ -1,0 +1,100 @@
+"""The PPO trainer's spans and counters (``gymca_torch.utils.metrics.span``):
+the calls an iteration counts under each path, the env's spans under the
+rollout, the work counters, and an iteration equal bit for bit with spans
+on and off.  CPU only: 2 envs on a 32² grid, 8 rollout steps, 2 minibatches,
+2 epochs."""
+
+import pytest
+import torch
+
+from gymca_torch import rng
+from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs, PPOArgs
+from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+from gymca_torch.utils import metrics
+
+N, SIZE, STEPS, MINIBATCHES, EPOCHS = 2, 32, 8, 2, 2
+UPDATES = MINIBATCHES * EPOCHS
+CALLS = {
+    "rollout": 1, "rollout/policy": STEPS, "rollout/stateless_step": STEPS,
+    "rollout/conditional_reset": STEPS, "gae": 1, "update": 1,
+    "update/loss_grad": UPDATES, "update/optimizer": UPDATES,
+}
+
+
+@pytest.fixture(autouse=True)
+def spans_off():
+    metrics.disable()
+    metrics.reset()
+    yield
+    metrics.disable()
+    metrics.reset()
+
+
+@pytest.fixture(scope="module")
+def trainer():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small tensors: one thread a test worker
+    env = AdvancedForestFireBulldozerEnv(SIZE, SIZE, key=rng.key(7, device="cpu"), num_envs=N,
+                                         use_fused_ca=True, device="cpu")
+    args = Args(ppo=PPOArgs(num_minibatches=MINIBATCHES, update_epochs=EPOCHS),
+                env=EnvArgs(num_envs=N, size=SIZE),
+                exp=ExperimentArgs(num_ppo_steps=STEPS, seed=7))
+    yield PPOTrainer(env, args, rng.key(7, device="cpu"), device="cpu")
+    torch.set_num_threads(threads)
+
+
+def start(trainer):
+    obs, info = trainer.env.reset()
+    return (trainer.agent_state, EpisodeStatistics.create(N, "cpu"), obs,
+            torch.zeros(N, dtype=torch.bool), info, trainer.key)
+
+
+def leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in leaves(v)]
+    if hasattr(tree, "__dataclass_fields__"):
+        return [x for k in tree.__dataclass_fields__ for x in leaves(getattr(tree, k))]
+    return []
+
+
+def test_an_iteration_counts_its_calls_under_each_path(trainer):
+    carry = start(trainer)
+    metrics.enable()
+    trainer.train_iteration(*carry)
+    snap = metrics.snapshot()
+    assert {p: snap[p][0] for p in CALLS} == CALLS
+    # the env's and the key chain's spans lie under the rollout, the
+    # permutation's under the update, and nothing lies outside the three roots
+    assert {"rollout/stateless_step/ca", "rollout/conditional_reset/fresh_state",
+            "rollout/policy/rng", "update/rng"} <= set(snap)
+    assert {p.split("/", 1)[0] for p in snap} == {"rollout", "gae", "update"}
+    for path, (_, total, child) in snap.items():
+        below = [p for p in snap if p.rsplit("/", 1)[0] == path and p != path]
+        assert child == sum(snap[p][1] for p in below) <= total, path
+
+
+def test_the_counters_count_the_samples(trainer):
+    names = ("samples_collected", "samples_forward", "samples_trained")
+    before = {k: getattr(trainer, k) for k in names}
+    trainer.train_iteration(*start(trainer))  # spans off: the counters count all the same
+    moved = {k: getattr(trainer, k) - before[k] for k in names}
+    assert moved == {"samples_collected": N * STEPS, "samples_forward": N * STEPS + N,
+                     "samples_trained": EPOCHS * N * STEPS}
+
+
+def test_an_iteration_is_equal_with_spans_on_and_off(trainer):
+    carry = start(trainer)
+    kept = [t.clone() for t in leaves(carry)]
+    off = leaves(trainer.rollout(*carry)) + leaves(trainer.train_iteration(*carry))
+    metrics.enable()
+    on = leaves(trainer.rollout(*carry)) + leaves(trainer.train_iteration(*carry))
+    assert metrics.snapshot() and len(on) == len(off) > 50
+    for a, b in zip(on, off):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # the iteration is a function of its carry: the carry is left as it was
+    assert all(torch.equal(a, b) for a, b in zip(leaves(carry), kept))
