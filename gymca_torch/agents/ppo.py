@@ -43,18 +43,35 @@ What the port does differently:
   trainer's pure iteration does (``tests/test_ppo.py:71``): at
   ``scripts/run``'s defaults with TF32 off, cuDNN's default algorithms
   did not repeat on an H100.
+* on a CUDA device the policy call (:meth:`PPOTrainer.get_action_and_value`:
+  torso, heads, the three Gumbel draws and their key splits, argmax and
+  log-probs) is one replay of a CUDA graph of :meth:`PPOTrainer.
+  _policy_eager`, captured at the first call of each input signature
+  (device, grid shape and dtype, feature shape, compute dtype, cuDNN and
+  matmul precision and algorithm flags; :class:`_PolicyGraph`).  The graph
+  holds the kernels the eager call launches, so it gives the same bits; it
+  spares the host the eager call's ~550 launches.  Each call copies the
+  params, grid, features and key into the graph's inputs and clones its
+  outputs, so a moved params dict is always seen.  The CPU runs the eager
+  body.
 
 Spans (``gymca_torch.utils.metrics.span``, off unless enabled) mark the
 iteration's layers: ``rollout`` (:meth:`PPOTrainer.rollout`, the env's own
-spans under it), ``policy`` (:meth:`PPOTrainer.get_action_and_value`),
-``gae`` (``_compute_gae``, the bootstrap value and the recurrence),
-``update`` (``_update_ppo``), ``loss_grad`` (each minibatch's
-:func:`value_and_grad`) and ``optimizer`` (:meth:`PPOTrainer.
+spans under it), ``policy`` (:meth:`PPOTrainer.get_action_and_value`: the
+features, then on the card ``policy_graph``, the copies in, the graph's
+replay and the clones out, or on the CPU the eager body with its key
+chain's ``rng`` spans), ``gae`` (``_compute_gae``, the bootstrap value and
+the recurrence), ``update`` (``_update_ppo``), ``loss_grad`` (each
+minibatch's :func:`value_and_grad`) and ``optimizer`` (:meth:`PPOTrainer.
 apply_gradients`).  Host-int counters on the trainer count the work, spans
 on or off: ``samples_collected`` (env samples, envs x rollout steps),
 ``samples_forward`` (samples through the networks without a gradient: the
-policy's and GAE's bootstrap) and ``samples_trained`` (samples through
-forward and backward, minibatch size x minibatches).
+policy's and GAE's bootstrap), ``samples_trained`` (samples through
+forward and backward, minibatch size x minibatches), and
+``policy_graph_captures`` and ``policy_graph_replays`` (the policy's CUDA
+graphs captured and replayed; 0 on the CPU).  Launch counters such as
+``rng.threefry_launch.launches`` count the host's launch calls: a graph's
+kernels count at its warm-up and capture, never at its replays.
 """
 
 from __future__ import annotations
@@ -306,6 +323,45 @@ def gae(rewards, values, dones, next_value, next_done, gamma: float, lam: float)
     return torch.stack(out[::-1])
 
 
+class _PolicyGraph:
+    """One CUDA graph of ``fn(params, grid, feats, key)`` (the trainer's
+    :meth:`PPOTrainer._policy_eager`) at the signature of the inputs it is
+    built with: static copies of those inputs, the graph captured on them,
+    its static outputs.  A call copies its inputs in, replays the graph and
+    returns clones of the outputs, with no host sync."""
+
+    WARMUP = 3  # eager calls on a side stream before the capture, as torch's docs do
+
+    def __init__(self, fn, params, grid, feats, key):
+        dev = grid.device
+        static = {g: {k: t.clone() for k, t in group.items()} for g, group in params.items()}
+        self.names = [(g, k) for g, group in static.items() for k in group]
+        self.leaves = [static[g][k] for g, k in self.names]
+        self.grid, self.key = grid.clone(), key.clone()
+        self.feats = None if feats is None else feats.clone()
+        args = (static, self.grid, self.feats, self.key)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):  # lazy set-up (handles, workspaces) off the capture
+                    fn(*args)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread-local: other threads' CUDA calls (NCCL's watchdog) go on
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = fn(*args)
+
+    def __call__(self, params, grid, feats, key):
+        torch._foreach_copy_(self.leaves, [params[g][k] for g, k in self.names])
+        self.grid.copy_(grid)
+        if feats is not None:
+            self.feats.copy_(feats)
+        self.key.copy_(key)
+        self.graph.replay()
+        return tuple(t.clone() for t in self.out)
+
+
 class PPOTrainer:
     """Owns the networks, the optimizer and the train iteration.
 
@@ -326,6 +382,8 @@ class PPOTrainer:
         self.process_group = process_group
         self.grad_all_reduces = 0
         self.samples_collected = self.samples_forward = self.samples_trained = 0
+        self.policy_graph_captures = self.policy_graph_replays = 0
+        self._policy_graphs = {}  # input signature -> _PolicyGraph
         if torch.device(env.device).type != dev.type:
             raise ValueError(f"the env runs on {env.device}, the trainer on {dev}")
         self.env = env
@@ -406,12 +464,42 @@ class PPOTrainer:
 
     @span("policy")
     def get_action_and_value(self, agent_state, obs, key):
-        """Sample per-head actions via the Gumbel trick (jax_ppo.py:866-899)."""
+        """Sample per-head actions via the Gumbel trick (jax_ppo.py:866-899):
+        ``(actions, logprobs, value, next key)``.  :meth:`_policy_eager` on
+        the CPU; on a CUDA device one replay of its CUDA graph for these
+        inputs' signature (:meth:`_policy_signature`), captured at the
+        signature's first call."""
         grid_obs, context = obs
         params = agent_state.params
         self.samples_forward += grid_obs.shape[0]
+        feats = self._policy_features(context)
+        if grid_obs.device.type != "cuda":
+            return self._policy_eager(params, grid_obs, feats, key)
+        signature = self._policy_signature(grid_obs, feats)
+        graph = self._policy_graphs.get(signature)
+        if graph is None:
+            graph = _PolicyGraph(self._policy_eager, params, grid_obs, feats, key)
+            self._policy_graphs[signature] = graph
+            self.policy_graph_captures += 1
+        self.policy_graph_replays += 1
+        with span("policy_graph"):
+            return graph(params, grid_obs, feats, key)
+
+    def _policy_signature(self, grid, feats):
+        """What decides the kernels a policy call launches: the device, the
+        grid's shape and dtype, the features' shape, the compute dtype and
+        the precision and algorithm flags of cuDNN and matmuls."""
+        flags = torch.backends.cudnn
+        return (grid.device, tuple(grid.shape), grid.dtype,
+                None if feats is None else (tuple(feats.shape), feats.dtype),
+                self.network.compute_dtype, flags.allow_tf32, flags.deterministic,
+                flags.benchmark, torch.backends.cuda.matmul.allow_tf32)
+
+    def _policy_eager(self, params, grid, feats, key):
+        """The policy call in eager ops: the spec, and the body of its CUDA
+        graph.  A function of its inputs alone."""
         with torch.no_grad():
-            hidden = self._torso(params, grid_obs, self._policy_features(context))
+            hidden = self._torso(params, grid, feats)
             actions, logprobs = [], []
             for logits in self._actor_logits(params, hidden):
                 pair = rng.split(key)

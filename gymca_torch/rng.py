@@ -142,8 +142,10 @@ def threefry_launch(keys: torch.Tensor, count: int, form: str, *, base: int = 0,
 
     Keys on the CPU take :func:`threefry_plain`.  Keys on a CUDA device
     launch ``csrc/threefry.cu`` on the current stream (strided keys read in
-    place; ``threefry_launch.launches`` counts the launches; an empty
-    result launches nothing) or raise."""
+    place; ``threefry_launch.launches`` counts the host's launch calls, so
+    a launch captured into a CUDA graph counts at its capture and not at
+    the graph's replays, as in the trainer's policy; an empty result
+    launches nothing) or raise."""
     if form not in _FORMS:
         raise ValueError(f"form must be one of {sorted(_FORMS)}, got {form!r}")
     if keys.dtype != torch.int64:

@@ -7,6 +7,8 @@ so this file imports only torch, numpy and the port.  Without a card each
 test skips; whether a card exists is decided inside the ``cuda`` fixture.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -887,6 +889,140 @@ def test_train_iteration_repeats_itself_at_the_default_cell(cuda):
             assert torch.equal(a[0].params[g][k], b[0].params[g][k]), (g, k)
     for k in a[-1]:
         assert torch.equal(a[-1][k], b[-1][k]), k
+
+
+@contextlib.contextmanager
+def policy_checked(trainer, calls):
+    """``trainer.get_action_and_value`` with each call's outputs kept in
+    ``calls`` beside ``_policy_eager``'s on the same inputs, under the same
+    flags."""
+    real = trainer.get_action_and_value
+
+    def checked(agent_state, obs, key):
+        got = real(agent_state, obs, key)
+        calls.append((got, trainer._policy_eager(agent_state.params, obs[0],
+                                                 trainer._policy_features(obs[1]), key)))
+        return got
+
+    trainer.get_action_and_value = checked
+    try:
+        yield
+    finally:
+        del trainer.get_action_and_value
+
+
+def assert_policy_calls_equal(calls, n):
+    assert len(calls) == n
+    for step, (got, want) in enumerate(calls):
+        assert len(got) == len(want) == 4
+        for name, a, b in zip(("actions", "logprobs", "value", "key"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (step, name)
+
+
+def default_cell_trainer(cuda):
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+    from gymca_torch.run import args_to_structured_args, build_env, parse_args
+
+    args = args_to_structured_args(parse_args(["-n", "8", "-z", "256"]))
+    env = build_env(args)
+    trainer = PPOTrainer(env, args, key=rng.key(args.exp.seed))
+    obs, info = env.reset()
+    n = args.env.num_envs
+    carry = (trainer.agent_state, EpisodeStatistics.create(n), obs,
+             torch.zeros(n, dtype=torch.bool, device=cuda), info, trainer.key)
+    return trainer, carry
+
+
+@pytest.mark.gpu
+def test_policy_graph_replays_equal_the_eager_policy_at_the_default_cell(cuda):
+    """8 envs at 256², 128 steps: the first call captures the policy's graph
+    and every call of the rollout replays it; at each step its actions,
+    log-probs, value and next key equal the eager body's bit for bit."""
+    trainer, carry = default_cell_trainer(cuda)
+    steps = trainer.args.exp.num_ppo_steps
+    calls = []
+    with policy_checked(trainer, calls):
+        trainer.rollout(*carry)
+    assert (trainer.policy_graph_captures, trainer.policy_graph_replays) == (1, steps)
+    assert_policy_calls_equal(calls, steps)
+
+
+@pytest.mark.gpu
+def test_policy_graph_reads_the_params_an_iteration_moved(cuda):
+    """After a ``train_iteration`` has made new params, a rollout under them
+    replays the same graph on them: equal to the eager body under the new
+    params, and not to the policy under the old."""
+    trainer, carry = default_cell_trainer(cuda)
+    steps = trainer.args.exp.num_ppo_steps
+    before = []
+    with policy_checked(trainer, before):
+        moved = trainer.train_iteration(*carry)[0]
+    after = []
+    with policy_checked(trainer, after):
+        trainer.rollout(moved, *carry[1:])
+    assert (trainer.policy_graph_captures, trainer.policy_graph_replays) == (1, 2 * steps)
+    assert_policy_calls_equal(before, steps)
+    assert_policy_calls_equal(after, steps)
+    assert not torch.equal(after[0][0][1], before[0][0][1])  # the first step's log-probs
+
+
+def small_trainer(cuda, **exp_kw):
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
+
+    n, size, steps = 4, 64, 8
+    env = AdvancedForestFireBulldozerEnv(size, size, key=rng.key(0), num_envs=n)
+    trainer = PPOTrainer(env, trainer_args(n, size, steps, **exp_kw))
+    obs, info = env.reset()
+    carry = (trainer.agent_state, EpisodeStatistics.create(n), obs,
+             torch.zeros(n, dtype=torch.bool, device=cuda), info, trainer.key)
+    return trainer, carry
+
+
+@pytest.mark.gpu
+def test_policy_graph_captures_once_a_batch_shape(cuda):
+    """4 envs at 64² with the position features on (a feature input): the
+    rollout captures once; half the batch captures a second graph; the
+    whole batch again replays the first.  Every call equals the eager
+    body."""
+    from gymca_torch.agents.ppo import cudnn_deterministic
+
+    trainer, carry = small_trainer(cuda, position_features=True)
+    steps = trainer.args.exp.num_ppo_steps
+    calls = []
+    with policy_checked(trainer, calls):
+        trainer.rollout(*carry)
+        assert trainer.policy_graph_captures == 1
+        state, _, (grid, context), _, _, key = carry
+        half = {"position": context["position"][:2]}
+        with cudnn_deterministic():
+            trainer.get_action_and_value(state, (grid[:2], half), key)
+            assert trainer.policy_graph_captures == 2
+            trainer.get_action_and_value(state, (grid, context), key)
+    assert (trainer.policy_graph_captures, trainer.policy_graph_replays) == (2, steps + 2)
+    assert calls[-2][0][0].shape == (2, trainer.n_action_heads)
+    assert_policy_calls_equal(calls, steps + 2)
+
+
+@pytest.mark.gpu
+def test_policy_graph_is_captured_anew_when_tf32_flips(cuda):
+    """A rollout with cuDNN's TF32 on, one with it off, one with it on
+    again: two captures, and each rollout equals the eager body under its
+    own flags."""
+    trainer, carry = small_trainer(cuda)
+    steps = trainer.args.exp.num_ppo_steps
+    flags = torch.backends.cudnn
+    saved = flags.allow_tf32
+    calls = []
+    try:
+        with policy_checked(trainer, calls):
+            for tf32, captures in ((True, 1), (False, 2), (True, 2)):
+                flags.allow_tf32 = tf32
+                trainer.rollout(*carry)
+                assert trainer.policy_graph_captures == captures
+    finally:
+        flags.allow_tf32 = saved
+    assert trainer.policy_graph_replays == 3 * steps
+    assert_policy_calls_equal(calls, 3 * steps)
 
 
 @pytest.mark.gpu

@@ -79,12 +79,15 @@ def test_an_iteration_counts_its_calls_under_each_path(trainer):
 
 
 def test_the_counters_count_the_samples(trainer):
-    names = ("samples_collected", "samples_forward", "samples_trained")
+    names = ("samples_collected", "samples_forward", "samples_trained",
+             "policy_graph_captures", "policy_graph_replays")
     before = {k: getattr(trainer, k) for k in names}
     trainer.train_iteration(*start(trainer))  # spans off: the counters count all the same
     moved = {k: getattr(trainer, k) - before[k] for k in names}
+    # the CPU runs the policy's eager body: no graph captured or replayed
     assert moved == {"samples_collected": N * STEPS, "samples_forward": N * STEPS + N,
-                     "samples_trained": EPOCHS * N * STEPS}
+                     "samples_trained": EPOCHS * N * STEPS, "policy_graph_captures": 0,
+                     "policy_graph_replays": 0}
 
 
 def test_an_iteration_is_equal_with_spans_on_and_off(trainer):
@@ -98,3 +101,54 @@ def test_an_iteration_is_equal_with_spans_on_and_off(trainer):
         assert a.dtype == b.dtype and torch.equal(a, b)
     # the iteration is a function of its carry: the carry is left as it was
     assert all(torch.equal(a, b) for a, b in zip(leaves(carry), kept))
+
+
+def test_the_policy_on_the_cpu_is_the_eager_body_and_captures_no_graph(trainer):
+    obs, _ = trainer.env.reset()
+    state, key = trainer.agent_state, trainer.key
+    forward = trainer.samples_forward
+    metrics.enable()
+    got = trainer.get_action_and_value(state, obs, key)
+    snap = metrics.snapshot()
+    metrics.disable()
+    want = trainer._policy_eager(state.params, obs[0], trainer._policy_features(obs[1]), key)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert trainer.samples_forward == forward + N
+    assert (trainer.policy_graph_captures, trainer.policy_graph_replays) == (0, 0)
+    assert trainer._policy_graphs == {}
+    assert snap["policy"][0] == 1 and "policy/rng" in snap
+    assert not any(p.rsplit("/", 1)[-1] == "policy_graph" for p in snap)
+
+
+@pytest.mark.parametrize("change", ["grid_shape", "grid_dtype", "feats", "cudnn_tf32",
+                                    "cudnn_deterministic", "cudnn_benchmark", "matmul_tf32"])
+def test_the_policy_graphs_signature_reads_what_the_capture_depends_on(trainer, change):
+    """Each input that changes what a capture holds gives another signature,
+    so a caller that changes it gets a new graph, never a stale replay."""
+    grid = torch.zeros(N, SIZE, SIZE, 3)
+    feats = None
+    base = trainer._policy_signature(grid, feats)
+    assert trainer._policy_signature(grid.clone(), feats) == base
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, matmul.allow_tf32
+    try:
+        if change == "grid_shape":
+            grid = grid[:1]
+        elif change == "grid_dtype":
+            grid = grid.to(torch.uint8)
+        elif change == "feats":
+            feats = torch.zeros(N, 2)
+        elif change == "cudnn_tf32":
+            cudnn.allow_tf32 = not cudnn.allow_tf32
+        elif change == "cudnn_deterministic":
+            cudnn.deterministic = not cudnn.deterministic
+        elif change == "cudnn_benchmark":
+            cudnn.benchmark = not cudnn.benchmark
+        else:
+            matmul.allow_tf32 = not matmul.allow_tf32
+        assert trainer._policy_signature(grid, feats) != base
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, matmul.allow_tf32 = saved
+    assert trainer._policy_signature(torch.zeros(N, SIZE, SIZE, 3), None) == base
