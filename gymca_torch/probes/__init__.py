@@ -19,8 +19,8 @@ work lists of ``scripts/exp_split.py``, to attribute its time by class.
 ``python3 -m gymca_torch.probes.ab_parent --parent DIR`` times a parent
 tree's K1 and K2, through that tree's own wrappers, beside this tree's, in
 turns on one card, on the
-input sets of :mod:`~gymca_torch.probes.kernel_inputs` (shared with
-``chip_smoke.py``).  :mod:`~gymca_torch.probes.timing` is their shared
+input sets of :mod:`~gymca_torch.probes.kernel_inputs` (shared with the
+card's checks, ``tests/test_torch_gpu.py``).  :mod:`~gymca_torch.probes.timing` is their shared
 timing harness.  The entry
 points run on the card and raise without one; their ``run`` functions take
 ``device="cpu"`` and then run the plain versions and measure nothing.

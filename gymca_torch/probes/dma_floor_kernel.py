@@ -4,7 +4,7 @@ plain version.
 Counterpart of ``scripts/bench_fused_ca.py::dma_floor``.  The kernel is
 ``gymca_torch/csrc/dma_floor.cu``: it moves exactly the bytes the port's
 Alexandridis kernel must move (29 per cell and 48 per env, as
-``chip_smoke.py``'s ``alexandridis_work`` counts them) and computes
+``alexandridis_kernel.alexandridis_work`` counts them) and computes
 ``out_grid = grid`` and ``out_age = age + 1``.  What it reads besides is
 folded into one int32 word per env, the XOR of every 32-bit word of
 ``dousing``, ``vdf``, the 8 direction planes of ``exp_slope``, ``wind_rows``

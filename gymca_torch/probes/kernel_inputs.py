@@ -1,6 +1,6 @@
 """Inputs of the main paths' kernels, K1 and K2/K3, for checks and timings.
 
-Shared by ``chip_smoke.py`` and :mod:`gymca_torch.probes.ab_parent`:
+Shared by ``tests/test_torch_gpu.py`` and :mod:`gymca_torch.probes.ab_parent`:
 
 * synthetic inputs from a ``torch.Generator``, with the layouts that can
   break each kernel's tiling (fire on tile edges, tiles beside burning

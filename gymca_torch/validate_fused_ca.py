@@ -22,7 +22,8 @@ Runs on the card; ``--device-cpu`` runs on the CPU.  The script refuses the
 CPU (exit 2) because its interpreted kernel's draws are a zero stub; here
 the kernel's plain version draws the same threefry bits as the kernel, so a
 CPU run is a real check of the fused path's statistics, at a size the CPU
-can afford.  ``chip_smoke.py``'s ``[distribution]`` check is stricter (no
+can afford.  ``tests/test_torch_gpu.py::
+test_fused_ca_statistics_match_the_xla_path_on_the_card`` is stricter (no
 5% floor, burned cells and fire age, t = 100-300) and stays beside it.
 """
 

@@ -6,8 +6,11 @@ Inputs are made with numpy from a seed and handed to both packages.  The
 JAX kernel runs in Pallas interpret mode, where ``prng_random_bits`` is a
 zero stub; the port's draws are replaced by zeros for those comparisons
 (monkeypatched here, no knob in the port).  The CUDA kernel itself is held
-to the plain version in ``tests/test_torch_gpu.py`` and by
-``chip_smoke.py``.  Tolerances: 0 unless a test states otherwise.
+to the plain version in ``tests/test_torch_gpu.py``
+(``test_alexandridis_kernel_matches_plain_on_the_card``, its tile layouts
+and the recorded launches of every path), and its draws to the XLA path's
+statistics by ``test_fused_ca_statistics_match_the_xla_path_on_the_card``.
+Tolerances: 0 unless a test states otherwise.
 """
 
 import jax

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no gymca_tpu, no flax, optax or orbax
-anywhere in ``gymca_torch/`` (its probes and trainer included) or
-``chip_smoke.py``, and gymnasium only in the gymnasium adapter modules
-(``gym_env.py``, loaded on demand, and ``registration.py``, which
+anywhere in ``gymca_torch/`` (its probes and trainer included) or in
+``tests/test_torch_gpu.py``, the card-side checks, and gymnasium only in
+the gymnasium adapter modules (``gym_env.py``, loaded on demand, and
+``registration.py``, which
 registers the ids only where gymnasium can be imported) and in
 ``update_gallery.py``, whose ``gym.make`` of every id is the script's
 (imported when it runs).  ``import
@@ -19,7 +20,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_SOURCES = sorted((ROOT / "gymca_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SOURCES = (sorted((ROOT / "gymca_torch").rglob("*.py"))
+                + [ROOT / "tests" / "test_torch_gpu.py"])
 FORBIDDEN = ("jax", "jaxlib", "gymca_tpu", "flax", "optax", "orbax")
 GYM_ADAPTERS = {ROOT / "gymca_torch" / "gym_env.py", ROOT / "gymca_torch" / "registration.py",
                 ROOT / "gymca_torch" / "update_gallery.py"}
@@ -65,7 +67,7 @@ def test_port_sources_exist():
     assert "gymca_torch/ops/windy_kernel.py" in names
     assert "gymca_torch/ops/alexandridis_kernel.py" in names
     assert "gymca_torch/envs/advanced.py" in names
-    assert "chip_smoke.py" in names
+    assert "tests/test_torch_gpu.py" in names
     for mod in AGENTS:
         assert f"gymca_torch/agents/{mod}.py" in names
     assert "gymca_torch/run.py" in names

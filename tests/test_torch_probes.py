@@ -13,7 +13,9 @@ their contracts, on the CPU.
 * The entry points: on the CPU at toy sizes, and raising without a card.
 
 The CUDA kernels themselves are held to these plain versions in
-``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.  Tolerances: 0.
+``tests/test_torch_gpu.py`` (``test_ca_variant_kernel_matches_plain_at_the_probes_sizes``,
+``test_probe_entry_points_run_on_the_card`` and the kernels' own cases).
+Tolerances: 0.
 """
 
 import importlib

@@ -1,6 +1,7 @@
 """K1: the plain version against the JAX kernel, the wrapper's contract, and
 its contract on the CPU.  The CUDA kernel itself is held to the plain version
-in ``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.
+in ``tests/test_torch_gpu.py`` (``test_windy_kernel_on_band_seams_and_one_class_matches_plain``
+and the recorded launches of ``test_windy_main_path_on_the_card``).
 
 The JAX kernel runs in Pallas interpret mode on the CPU, at the sizes
 ``tests/test_pallas.py`` uses.  Every comparison is exact (tolerance 0).
