@@ -48,30 +48,50 @@ What the port does differently:
   log-probs) is one replay of a CUDA graph of :meth:`PPOTrainer.
   _policy_eager`, captured at the first call of each input signature
   (device, grid shape and dtype, feature shape, compute dtype, cuDNN and
-  matmul precision and algorithm flags; :class:`_PolicyGraph`).  The graph
-  holds the kernels the eager call launches, so it gives the same bits; it
-  spares the host the eager call's ~550 launches.  Each call copies the
-  params, grid, features and key into the graph's inputs and clones its
-  outputs, so a moved params dict is always seen.  The CPU runs the eager
-  body.
+  matmul precision and algorithm flags; :class:`_Graph`).  The graph holds
+  the kernels the eager call launches, so it gives the same bits; it spares
+  the host the eager call's ~550 launches.  Each call copies the params,
+  grid, features and key into the graph's inputs and clones its outputs,
+  so a moved params dict is always seen.
+* on a CUDA device the rest of a rollout step, its env half
+  (:meth:`PPOTrainer._env_step`: ``stateless_step``, the episode
+  statistics, ``conditional_reset``, the shaped reward and the storage
+  row), is one replay of a second graph (:meth:`PPOTrainer._graphed_step`),
+  captured at the first step of each input signature (device, path, shape
+  and dtype of every carry leaf, the rollout's length, the env's CA route,
+  the trainer's shaping, kickstart, feature and extension flags, cuDNN and
+  matmul flags).  The carry stays in the graph's inputs through a rollout:
+  each replay writes the next carry over them and the row into the (T, N,
+  ...) storage among them, so a step copies in only the action, log-probs
+  and value (memory the capture allocates holds nothing from one replay to
+  the next: each replay may rewrite it).  The rollout copies the caller's
+  carry in at its first step and hands back clones of the carry and
+  storage at its last, or the caller's own tensors where the steps pass
+  them through (the terrain, the shared context), so nothing it returns is
+  a buffer a later replay overwrites.  The CPU runs the eager bodies.
 
 Spans (``gymca_torch.utils.metrics.span``, off unless enabled) mark the
-iteration's layers: ``rollout`` (:meth:`PPOTrainer.rollout`, the env's own
-spans under it), ``policy`` (:meth:`PPOTrainer.get_action_and_value`: the
-features, then on the card ``policy_graph``, the copies in, the graph's
-replay and the clones out, or on the CPU the eager body with its key
-chain's ``rng`` spans), ``gae`` (``_compute_gae``, the bootstrap value and
-the recurrence), ``update`` (``_update_ppo``), ``loss_grad`` (each
-minibatch's :func:`value_and_grad`) and ``optimizer`` (:meth:`PPOTrainer.
-apply_gradients`).  Host-int counters on the trainer count the work, spans
-on or off: ``samples_collected`` (env samples, envs x rollout steps),
+iteration's layers: ``rollout`` (:meth:`PPOTrainer.rollout`), ``policy``
+(:meth:`PPOTrainer.get_action_and_value`: the features, then on the card
+``policy_graph``, the copies in, the graph's replay and the clones out, or
+on the CPU the eager body with its key chain's ``rng`` spans), on the card
+``step_graph`` (a rollout step's env half: the copies in, the replay, and
+at the last step the clones out), on the CPU the env's own spans under
+``rollout``, ``gae`` (``_compute_gae``, the bootstrap value and the
+recurrence), ``update`` (``_update_ppo``), ``loss_grad`` (each minibatch's
+:func:`value_and_grad`) and ``optimizer`` (:meth:`PPOTrainer.
+apply_gradients`).  A graph's spans are entered at its warm-up and capture
+only.  Host-int counters on the trainer count the work, spans on or off:
+``samples_collected`` (env samples, envs x rollout steps),
 ``samples_forward`` (samples through the networks without a gradient: the
 policy's and GAE's bootstrap), ``samples_trained`` (samples through
-forward and backward, minibatch size x minibatches), and
+forward and backward, minibatch size x minibatches),
 ``policy_graph_captures`` and ``policy_graph_replays`` (the policy's CUDA
-graphs captured and replayed; 0 on the CPU).  Launch counters such as
-``rng.threefry_launch.launches`` count the host's launch calls: a graph's
-kernels count at its warm-up and capture, never at its replays.
+graphs captured and replayed) and ``step_graph_captures`` and
+``step_graph_replays`` (the env half's; all four 0 on the CPU).  Launch
+counters such as ``rng.threefry_launch.launches`` and
+``alexandridis_fused_step.launches`` count the host's launch calls: a
+graph's kernels count at its warm-ups and capture, never at its replays.
 """
 
 from __future__ import annotations
@@ -323,43 +343,131 @@ def gae(rewards, values, dones, next_value, next_done, gamma: float, lam: float)
     return torch.stack(out[::-1])
 
 
-class _PolicyGraph:
-    """One CUDA graph of ``fn(params, grid, feats, key)`` (the trainer's
-    :meth:`PPOTrainer._policy_eager`) at the signature of the inputs it is
-    built with: static copies of those inputs, the graph captured on them,
-    its static outputs.  A call copies its inputs in, replays the graph and
-    returns clones of the outputs, with no host sync."""
+def _children(tree):
+    """A tree node's children as ``(key, child)`` pairs (dicts by sorted
+    key, tuples and lists by position, dataclasses by field), or None for a
+    leaf: a tensor, None or any other value."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (tuple, list)):
+        return list(enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    return None
+
+
+def _leaves(tree, path=()):
+    """``[(path, leaf)]`` of a tree, in :func:`_children`'s order."""
+    children = _children(tree)
+    if children is None:
+        return [(path, tree)]
+    return [x for k, child in children for x in _leaves(child, path + (k,))]
+
+
+def _rebuild(like, leaves):
+    """A tree shaped as ``like`` whose leaves, in :func:`_leaves`' order, are
+    taken from the iterator ``leaves``."""
+    children = _children(like)
+    if children is None:
+        return next(leaves)
+    built = {k: _rebuild(child, leaves) for k, child in children}
+    if isinstance(like, dict):
+        return {k: built[k] for k in like}
+    if isinstance(like, (tuple, list)):
+        return type(like)(built[i] for i in range(len(like)))
+    return dataclasses.replace(like, **built)
+
+
+def _tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor leaf."""
+    return _rebuild(tree, iter([fn(x) if isinstance(x, torch.Tensor) else x
+                                for _, x in _leaves(tree)]))
+
+
+def _tensors(tree):
+    """The tensor leaves of a tree, in :func:`_leaves`' order, without their
+    paths: the per-call flattening of a graph's inputs."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensors(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for child in tree for x in _tensors(child)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree) for x in _tensors(getattr(tree, f.name))]
+    return []
+
+
+def _copy_pairs(dsts, srcs):
+    """``dst.copy_(src)`` for each pair: one ``_foreach_copy_`` a dtype."""
+    groups = {}
+    for dst, src in zip(dsts, srcs):
+        group = groups.setdefault(dst.dtype, ([], []))
+        group[0].append(dst)
+        group[1].append(src)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+def _copy_tree(dst, src):
+    """Copy the tensors of the tree ``src`` into those of ``dst``, a tree of
+    the same structure."""
+    _copy_pairs(_tensors(dst), _tensors(src))
+
+
+def _write_back(static, new):
+    """Copy the tensors of the tree ``new`` into those of ``static`` (a tree
+    of the same paths), and say, leaf by leaf, whether ``new`` held
+    ``static``'s own tensor there (passed through, so left as it is).  A
+    tensor of ``new`` sharing memory with one of ``static`` is cloned before
+    any copy, so that no copy reads what another has written."""
+    dst, src = _leaves(static), _leaves(new)
+    if [p for p, _ in dst] != [p for p, _ in src]:
+        raise ValueError("the step's next carry is not shaped as its carry")
+    kept = tuple(s is d for (_, d), (_, s) in zip(dst, src))
+    held = {d.untyped_storage().data_ptr() for _, d in dst if isinstance(d, torch.Tensor)}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in held else s)
+             for ((_, d), (_, s)), k in zip(zip(dst, src), kept)
+             if not k and isinstance(d, torch.Tensor)]
+    _copy_pairs([d for d, _ in pairs], [s for _, s in pairs])
+    return kept
+
+
+class _Graph:
+    """One CUDA graph of ``fn(*args)`` at the signature of the arguments it
+    is built with (trees of dicts, tuples, lists and dataclasses whose
+    tensors are the inputs): static copies of those arguments (``args``),
+    ``WARMUP`` eager calls on them on a side stream, then the capture on
+    them, whose outputs (``out``) each replay overwrites.  A call copies its
+    arguments' tensors into the static copies (``inputs``, one
+    ``_foreach_copy_`` a dtype), replays the graph and returns clones of the
+    outputs; none of it waits for the device."""
 
     WARMUP = 3  # eager calls on a side stream before the capture, as torch's docs do
 
-    def __init__(self, fn, params, grid, feats, key):
-        dev = grid.device
-        static = {g: {k: t.clone() for k, t in group.items()} for g, group in params.items()}
-        self.names = [(g, k) for g, group in static.items() for k in group]
-        self.leaves = [static[g][k] for g, k in self.names]
-        self.grid, self.key = grid.clone(), key.clone()
-        self.feats = None if feats is None else feats.clone()
-        args = (static, self.grid, self.feats, self.key)
+    def __init__(self, fn, *args):
+        self.args = _tree_map(torch.clone, args)
+        self.inputs = _tensors(self.args)
+        dev = self.inputs[0].device
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(self.WARMUP):  # lazy set-up (handles, workspaces) off the capture
-                    fn(*args)
+                    fn(*self.args)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             # thread-local: other threads' CUDA calls (NCCL's watchdog) go on
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self.out = fn(*args)
+                self.out = fn(*self.args)
 
-    def __call__(self, params, grid, feats, key):
-        torch._foreach_copy_(self.leaves, [params[g][k] for g, k in self.names])
-        self.grid.copy_(grid)
-        if feats is not None:
-            self.feats.copy_(feats)
-        self.key.copy_(key)
+    def replay(self):
         self.graph.replay()
-        return tuple(t.clone() for t in self.out)
+
+    def __call__(self, *args):
+        _copy_pairs(self.inputs, _tensors(args))
+        self.graph.replay()
+        return _tree_map(torch.clone, self.out)
 
 
 class PPOTrainer:
@@ -383,7 +491,9 @@ class PPOTrainer:
         self.grad_all_reduces = 0
         self.samples_collected = self.samples_forward = self.samples_trained = 0
         self.policy_graph_captures = self.policy_graph_replays = 0
-        self._policy_graphs = {}  # input signature -> _PolicyGraph
+        self.step_graph_captures = self.step_graph_replays = 0
+        self._policy_graphs = {}  # input signature -> _Graph of _policy_eager
+        self._step_graphs = {}  # input signature -> _Graph of _graphed_step
         if torch.device(env.device).type != dev.type:
             raise ValueError(f"the env runs on {env.device}, the trainer on {dev}")
         self.env = env
@@ -478,7 +588,7 @@ class PPOTrainer:
         signature = self._policy_signature(grid_obs, feats)
         graph = self._policy_graphs.get(signature)
         if graph is None:
-            graph = _PolicyGraph(self._policy_eager, params, grid_obs, feats, key)
+            graph = _Graph(self._policy_eager, params, grid_obs, feats, key)
             self._policy_graphs[signature] = graph
             self.policy_graph_captures += 1
         self.policy_graph_replays += 1
@@ -625,6 +735,16 @@ class PPOTrainer:
         agent_state, stats, obs, done, info, key = carry
         action, logprob, value, key = self.get_action_and_value(agent_state, obs, key)
         self.samples_collected += action.shape[0]
+        stats, next_obs, next_done, next_info, row = self._env_step(action, logprob, value,
+                                                                    stats, obs, done, info)
+        return (agent_state, stats, next_obs, next_done, next_info, key), row
+
+    def _env_step(self, action, logprob, value, stats, obs, done, info):
+        """A rollout step's env half in eager ops: the env's step, the
+        episode statistics, the auto-reset, the shaped reward and the
+        storage row; ``(stats, next obs, next done, next info, row)``.  A
+        function of its inputs alone: the CPU's body, and the body of the
+        step's CUDA graph (:meth:`_graphed_step`)."""
         step_tuple = self.env.stateless_step(action, obs, info)
         stats = self._update_episode_stats(stats, action, obs, step_tuple[4])
         next_obs, reward, next_done, _, next_info = self.env.conditional_reset(step_tuple,
@@ -651,7 +771,80 @@ class PPOTrainer:
             demo_actions=(self._greedy_demo_action(obs[1]) if self._kickstart
                           else torch.zeros_like(action)),
         )
-        return (agent_state, stats, next_obs, next_done, next_info, key), row
+        return stats, next_obs, next_done, next_info, row
+
+    def _graphed_step(self, i, action, logprob, value, carry, storage):
+        """The step graph's body: :meth:`_env_step` on ``carry`` ``(stats,
+        obs, done, info)``, its row written at step ``i % num_ppo_steps`` of
+        ``storage``, the next carry written over ``carry`` and ``i``
+        advanced; which carry leaves the step passed through.  What a replay
+        must leave for the next (the carry, the storage, ``i``) is in its
+        inputs: memory the capture allocates may be rewritten by any
+        replay."""
+        *new, row = self._env_step(action, logprob, value, *carry)
+        at = i % self.args.exp.num_ppo_steps
+        for (_, rows), (_, x) in zip(_leaves(storage), _leaves(row)):
+            rows.index_copy_(0, at, x[None])
+        kept = _write_back(carry, tuple(new))
+        i.add_(1)
+        return kept
+
+    def _step_signature(self, args):
+        """What decides the kernels a step graph launches: the device, path,
+        shape and dtype of every input, the rollout's length, the env's CA
+        route, the trainer's shaping, kickstart, feature and extension
+        flags and the shaping's constants, and the precision and algorithm
+        flags of cuDNN and matmuls."""
+        ppo, flags = self.args.ppo, torch.backends.cudnn
+        inputs = tuple((p, x.device, tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                       else (p, x) for p, x in _leaves(args))
+        return (inputs, self.args.exp.num_ppo_steps, self.env.use_fused_ca,
+                self.env.ca_repeat_mode, self._shaping, self._kickstart, self.position_features,
+                self.centroid_features, self._track_extension_accuracy,
+                (ppo.gamma, ppo.shape_tree_coef, ppo.shape_dist_coef, ppo.shape_douse_coef),
+                flags.allow_tf32, flags.deterministic, flags.benchmark,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    def _rollout_graphed(self, agent_state, carry, key):
+        """:meth:`rollout` on a CUDA device: each step one replay of the
+        policy's graph, then one of the step's (:meth:`_graphed_step`,
+        captured at an input signature's first step).  The caller's carry
+        ``(stats, obs, done, info)`` is copied into the step graph's inputs
+        at the first step, where it stays through the rollout; the last step
+        hands back clones of the graph's carry and storage, or the caller's
+        own tensors where the steps passed them through."""
+        steps = self.args.exp.num_ppo_steps
+        obs, graph = carry[1], None
+        for t in range(steps):
+            action, logprob, value, key = self.get_action_and_value(agent_state, obs, key)
+            self.samples_collected += action.shape[0]
+            with span("step_graph"):
+                if graph is None:
+                    i = torch.zeros(1, dtype=torch.int64, device=action.device)
+                    args = (i, action, logprob, value, carry)
+                    signature = self._step_signature(args)
+                    graph = self._step_graphs.get(signature)
+                    if graph is None:
+                        # an eager step gives the row's shapes: the graph's
+                        # storage, (T, N, ...), is one of its inputs
+                        row = self._env_step(action, logprob, value, *carry)[-1]
+                        rows = _tree_map(lambda x: x[None].expand((steps,) + x.shape), row)
+                        graph = _Graph(self._graphed_step, *args, rows)
+                        self._step_graphs[signature] = graph
+                        self.step_graph_captures += 1
+                    _copy_tree(graph.args[:5], args)
+                    obs = graph.args[4][1]
+                else:
+                    _copy_tree(graph.args[1:4], (action, logprob, value))
+                graph.replay()
+                self.step_graph_replays += 1
+                if t == steps - 1:
+                    out = [x if k else s.clone() for (_, x), (_, s), k
+                           in zip(_leaves(carry), _leaves(graph.args[4]), graph.out)]
+                    carry = _rebuild(carry, iter(out))
+                    storage = _tree_map(torch.clone, graph.args[5])
+        stats, obs, done, info = carry
+        return (agent_state, stats, obs, done, info, key), storage
 
     # -------------------------------------------------------------------- GAE
 
@@ -760,9 +953,13 @@ class PPOTrainer:
     @span("rollout")
     def rollout(self, agent_state, stats, obs, done, info, key):
         """``num_ppo_steps`` env steps under the current policy:
-        ``(carry, storage)`` with storage leaves (T, N, ...)."""
+        ``(carry, storage)`` with storage leaves (T, N, ...).  On a CUDA
+        device each step is two graph replays (:meth:`_rollout_graphed`);
+        on the CPU, :meth:`_step_once`."""
         carry, rows = (agent_state, stats, obs, done, info, key), []
         with cudnn_deterministic():
+            if obs[0].device.type == "cuda":
+                return self._rollout_graphed(agent_state, (stats, obs, done, info), key)
             for _ in range(self.args.exp.num_ppo_steps):
                 carry, row = self._step_once(carry)
                 rows.append(row)

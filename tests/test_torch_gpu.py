@@ -131,6 +131,56 @@ def k2_launched(count, keep):
     assert len(recorded) == len(keep) and all(alexandridis_equals_plain(*r) for r in recorded)
 
 
+@contextlib.contextmanager
+def k2_each_env_step(steps, eager=0, check=False):
+    """Inside the block the trainers' rollouts step their envs ``steps``
+    times and run K2 once a step, and ``eager`` K2 launches are made outside
+    the trainer (the BC warm-start's env steps).
+
+    On the card a rollout step is a replay of a step graph, whose kernels
+    the host launches only at the graph's warm-ups and capture.  So each
+    call of the env half (``PPOTrainer._env_step``: a warm-up, a capture or
+    an eager step) launches K2 once, the block's K2 launches are those
+    calls' and ``eager``'s, and the step graphs replay ``steps`` times,
+    each replay running the one K2 launch its capture recorded.  With
+    ``check``, K2 equals its plain version at the block's first launch and
+    at each capture's: the recorder's copies of a capture's inputs are
+    captured with it, so after the block they hold the last replayed
+    step's."""
+    from gymca_torch.agents.ppo import PPOTrainer
+
+    real_step, real_rollout = PPOTrainer._env_step, PPOTrainer.rollout
+    calls, trainers = [], {}
+
+    def env_step(self, *args):
+        before = ak.alexandridis_fused_step.launches
+        out = real_step(self, *args)
+        calls.append((torch.cuda.is_current_stream_capturing(),
+                      ak.alexandridis_fused_step.launches - before))
+        return out
+
+    def rollout(self, *args, **kw):
+        trainers.setdefault(id(self), (self, self.step_graph_replays))
+        return real_rollout(self, *args, **kw)
+
+    def keep(i, args, kw):
+        return i == 0 or torch.cuda.is_current_stream_capturing()
+
+    before = ak.alexandridis_fused_step.launches
+    PPOTrainer._env_step, PPOTrainer.rollout = env_step, rollout
+    try:
+        with (ki.alexandridis_recorder(keep) if check else contextlib.nullcontext([])) as kept:
+            yield
+    finally:
+        PPOTrainer._env_step, PPOTrainer.rollout = real_step, real_rollout
+    assert all(n == 1 for _, n in calls)
+    assert ak.alexandridis_fused_step.launches - before == len(calls) + eager
+    assert sum(t.step_graph_replays - r for t, r in trainers.values()) == steps
+    if check:
+        assert len(kept) == 1 + sum(c for c, _ in calls)
+        assert all(alexandridis_equals_plain(*r) for r in kept)
+
+
 def finite_metrics(history):
     return all(math.isfinite(v) for h in history for v in h.values())
 
@@ -758,8 +808,8 @@ def trainer_args(n, size, steps, **exp_kw):
 @pytest.mark.gpu
 def test_train_iteration_on_the_card(cuda):
     """One ``train_iteration`` at 4 envs x 64², 8 steps, on the fused env:
-    one Alexandridis launch per env step, the rollout with no host sync,
-    finite metrics, the params moved."""
+    one Alexandridis launch per env step (``k2_each_env_step``), the
+    rollout with no host sync, finite metrics, the params moved."""
     from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
 
     n, steps = 4, 8
@@ -769,18 +819,17 @@ def test_train_iteration_on_the_card(cuda):
     obs, info = env.reset()
     carry = (trainer.agent_state, EpisodeStatistics.create(n), obs,
              torch.zeros(n, dtype=torch.bool, device=cuda), info, trainer.key)
-    trainer.rollout(*carry)  # warm: cuDNN and the kernel build
+    with k2_each_env_step(steps):
+        trainer.rollout(*carry)  # warm: cuDNN, the kernel build, the graphs' captures
     torch.cuda.synchronize()
-    before = ak.alexandridis_fused_step.launches
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        trainer.rollout(*carry)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert ak.alexandridis_fused_step.launches == before + steps
-    before = ak.alexandridis_fused_step.launches
-    out = trainer.train_iteration(*carry)
-    assert ak.alexandridis_fused_step.launches == before + steps
+    with k2_each_env_step(steps):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            trainer.rollout(*carry)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    with k2_each_env_step(steps):
+        out = trainer.train_iteration(*carry)
     assert all(torch.isfinite(v).all() for v in out[-1].values())
     moved = [not torch.equal(a, b) for g in out[0].params
              for a, b in zip(out[0].params[g].values(), carry[0].params[g].values())]
@@ -843,14 +892,12 @@ def test_train_at_the_default_cell_on_the_card(cuda):
     trainer, carry = default_cell_trainer(cuda)
     steps = trainer.args.exp.num_ppo_steps
     start = trainer.agent_state.params
-    with k2_launched(steps, {0, steps - 1}):
+    with k2_each_env_step(steps, check=True):
         state, history = trainer.train(num_iterations=1)
     assert finite_metrics(history) and not params_equal(start, state.params)
 
-    before = ak.alexandridis_fused_step.launches
-    with no_host_sync():
+    with k2_each_env_step(steps), no_host_sync():
         after, storage = trainer.rollout(state, *carry[1:])
-    assert ak.alexandridis_fused_step.launches - before == steps
     with no_host_sync():
         losses = trainer.learn(after[0], after[2], after[3], storage, after[5])[1]
     assert all(torch.isfinite(v) for v in losses.values())
@@ -897,11 +944,10 @@ def test_critic_warmup_iteration_freezes_torso_and_actor_on_the_card(cuda):
             self[step] = agent_state
 
     saved, iters = Saved(), 3
-    before = ak.alexandridis_fused_step.launches
-    bc = trainer.bc_pretrain(args.exp.bc_iters)
-    cloned = trainer.agent_state.params
-    history = trainer.train(num_iterations=iters, checkpoint_manager=saved)[1]
-    assert ak.alexandridis_fused_step.launches - before == (1 + iters) * 16
+    with k2_each_env_step(iters * 16, eager=16):  # the BC iteration's 16 steps: eager
+        bc = trainer.bc_pretrain(args.exp.bc_iters)
+        cloned = trainer.agent_state.params
+        history = trainer.train(num_iterations=iters, checkpoint_manager=saved)[1]
     assert finite_metrics([bc] + history)
     warm = saved[1].params
     assert params_equal(cloned, warm, ("network_params", "actor_params"))
@@ -1266,7 +1312,7 @@ def test_train_curve_and_eval_policy_on_the_card(cuda, tmp_path):
     from gymca_torch import eval_policy, train_curve
 
     blob, recipe_blob = tmp_path / "curve.pkl", tmp_path / "recipe.pkl"
-    with k2_launched(128, {0, 127}):
+    with k2_each_env_step(128, check=True):
         result = train_curve.main(["--size", "256", "--num-envs", "32", "--iters", "1",
                                    "--pallas-ca", "--bf16", "--tag", "card", "--out",
                                    str(tmp_path), "--save-params", str(blob)])
@@ -1336,15 +1382,16 @@ def test_data_parallel_ppo_iteration_on_nccl(cuda, nccl):
                 exp=ExperimentArgs(num_ppo_steps=steps, total_timesteps=n * steps * 4))
     dp = DataParallelPPO(env, args, make_mesh(1), key=rng.key(5))
     carry = dp.init_carry()
-    dp.train_iteration(*carry)  # warm: cuDNN, NCCL's communicator
+    with k2_each_env_step(steps):
+        dp.train_iteration(*carry)  # warm: cuDNN, NCCL's communicator, the graphs' captures
     torch.cuda.synchronize()
-    before, reduces = ak.alexandridis_fused_step.launches, dp.trainer.grad_all_reduces
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = dp.train_iteration(*carry)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert ak.alexandridis_fused_step.launches == before + steps
+    reduces = dp.trainer.grad_all_reduces
+    with k2_each_env_step(steps):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dp.train_iteration(*carry)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     assert dp.trainer.grad_all_reduces == reduces + 4
     assert all(bool(torch.isfinite(v)) for v in out[-1].values())
 
@@ -1524,7 +1571,7 @@ def test_data_parallel_ppo_at_the_default_cell_on_nccl(cuda, nccl):
     assert env.use_fused_ca
     dp = DataParallelPPO(env, args, make_mesh(1), key=rng.key(args.exp.seed))
     start = dp.trainer.agent_state
-    with k2_launched(steps, {0, steps - 1}):
+    with k2_each_env_step(steps, check=True):
         state, history = dp.train(1)
     n_mb = args.ppo.update_epochs * args.ppo.num_minibatches
     assert (dp.trainer.grad_all_reduces, dp.metric_all_reduces) == (n_mb, 1)
@@ -1740,6 +1787,145 @@ def test_policy_graph_is_captured_anew_when_tf32_flips(cuda):
         flags.allow_tf32 = saved
     assert trainer.policy_graph_replays == 3 * steps
     assert_policy_calls_equal(calls, 3 * steps)
+
+
+def eager_rollout(trainer, carry):
+    """``trainer``'s rollout with the env half in eager ops
+    (``PPOTrainer._step_once``, the CPU's loop): the carry entering each
+    step, the carry after the last, and the rows."""
+    from gymca_torch.agents.ppo import cudnn_deterministic
+
+    carries, rows = [], []
+    with cudnn_deterministic():
+        for _ in range(trainer.args.exp.num_ppo_steps):
+            carries.append(carry)
+            carry, row = trainer._step_once(carry)
+            rows.append(row)
+    return carries, carry, rows
+
+
+def assert_trees_equal(got, want, what):
+    from gymca_torch.agents.ppo import _leaves
+
+    got, want = _leaves(got), _leaves(want)
+    assert [p for p, _ in got] == [p for p, _ in want], what
+    for (path, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (what, path)
+
+
+@contextlib.contextmanager
+def step_carries_kept(trainer, start, seen):
+    """``trainer.get_action_and_value``, called once a rollout step, with a
+    copy of the env carry entering each step kept in ``seen``: ``start`` at
+    the first step, then the carry the step graph holds in its inputs."""
+    from gymca_torch.agents.ppo import _tree_map
+
+    real = trainer.get_action_and_value
+
+    def kept(agent_state, obs, key):
+        held = list(trainer._step_graphs.values())[-1].args[4] if seen else start
+        seen.append(_tree_map(torch.clone, held))
+        return real(agent_state, obs, key)
+
+    trainer.get_action_and_value = kept
+    try:
+        yield
+    finally:
+        del trainer.get_action_and_value
+
+
+@pytest.mark.gpu
+def test_step_graph_replays_equal_the_eager_env_half_at_the_default_cell(cuda):
+    """8 envs at 256², 128 steps: the rollout captures the step graph at its
+    first step and replays it at every step; the carry entering each step,
+    each step's storage row and the carry after the last equal the eager
+    env half's (``_step_once``) bit for bit."""
+    trainer, carry = default_cell_trainer(cuda)
+    steps = trainer.args.exp.num_ppo_steps
+    seen = []
+    with step_carries_kept(trainer, carry[1:5], seen):
+        out, storage = trainer.rollout(*carry)
+    assert (trainer.step_graph_captures, trainer.step_graph_replays) == (1, steps)
+    assert (trainer.policy_graph_captures, trainer.policy_graph_replays) == (1, steps)
+    carries, last, rows = eager_rollout(trainer, carry)
+    assert len(seen) == len(carries) == len(rows) == steps
+    for t in range(steps):
+        assert_trees_equal(seen[t], carries[t][1:5], f"carry entering step {t}")
+        assert_trees_equal(storage.replace(**{f: getattr(storage, f)[t] for f in
+                                              storage.__dataclass_fields__}), rows[t],
+                           f"row {t}")
+    assert_trees_equal(out, last, "carry after the last step")
+
+
+def halved(carry):
+    """The first two envs of a carry, the shared context whole, new episode
+    statistics (as ``DataParallelPPO`` cuts a rank's block)."""
+    from gymca_torch.agents.ppo import EpisodeStatistics
+
+    state, _, (rgb, context), done, info, key = carry
+    context = dict(context, position=context["position"][:2], time=context["time"][:2],
+                   per_env_context={k: v[:2] for k, v in context["per_env_context"].items()})
+    return (state, EpisodeStatistics.create(2), (rgb[:2], context), done[:2],
+            {k: v[:2] for k, v in info.items()}, key)
+
+
+@pytest.mark.gpu
+def test_step_graph_captures_once_a_batch_shape(cuda):
+    """4 envs at 64² with position features, reward shaping (douse's max
+    pool among it) and kickstart on: the rollout captures once; half the
+    batch captures a second graph; the whole batch again replays the first,
+    with no host sync.  Each rollout equals the eager env half."""
+    from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer, Storage
+
+    env = AdvancedForestFireBulldozerEnv(64, 64, key=rng.key(0), num_envs=4)
+    args = trainer_args(4, 64, 8, position_features=True)
+    ppo = args.ppo
+    ppo.shape_tree_coef, ppo.shape_dist_coef, ppo.shape_douse_coef = 20.0, 2.0, 20.0
+    ppo.kickstart_coef = 1.0
+    trainer = PPOTrainer(env, args)
+    assert trainer._shaping and trainer._kickstart and trainer._use_features
+    obs, info = env.reset()
+    carry = (trainer.agent_state, EpisodeStatistics.create(4), obs,
+             torch.zeros(4, dtype=torch.bool, device=cuda), info, trainer.key)
+    for i, (c, captures) in enumerate(((carry, 1), (halved(carry), 2), (carry, 2))):
+        with no_host_sync() if i == 2 else contextlib.nullcontext():
+            got = trainer.rollout(*c)
+        assert trainer.step_graph_captures == captures
+        _, last, rows = eager_rollout(trainer, c)
+        assert_trees_equal(got[0], last, f"rollout {i}'s carry")
+        assert_trees_equal(got[1], Storage.stack(rows), f"rollout {i}'s storage")
+    assert trainer.step_graph_replays == 3 * args.exp.num_ppo_steps
+    assert got[1].grid_obs.shape[1] == 4
+
+
+@pytest.mark.gpu
+def test_what_a_rollout_returns_is_its_own(cuda):
+    """The carry and storage a rollout hands back hold no buffer of the
+    step graph and stay as they were through a second rollout from another
+    carry and a ``train_iteration``; the passed-through terrain and shared
+    context are the caller's own tensors."""
+    from gymca_torch.agents.ppo import _leaves, _tree_map
+    from gymca_torch.envs.advanced import TERRAIN_KEYS
+
+    trainer, carry = small_trainer(cuda)
+    first = trainer.rollout(*carry)
+    kept = _tree_map(torch.clone, first)
+    (graph,) = trainer._step_graphs.values()
+    held = {x.untyped_storage().data_ptr() for _, x in _leaves((graph.args, graph.out))
+            if isinstance(x, torch.Tensor)}
+    context = carry[2][1]
+    own = {id(v) for v in context["shared_context"].values()} | {
+        id(context["per_env_context"][k]) for k in TERRAIN_KEYS}
+    for (path, a), (_, b) in zip(_leaves(first[0][1:5]), _leaves(carry[1:5])):
+        assert (a is b) == (id(b) in own), path
+    for path, x in _leaves(first):
+        if isinstance(x, torch.Tensor):
+            assert x.untyped_storage().data_ptr() not in held, path
+    trainer.rollout(*first[0])
+    trainer.train_iteration(*carry)
+    assert trainer.step_graph_captures == 1
+    torch.cuda.synchronize()
+    assert_trees_equal(first, kept, "the first rollout's output")
 
 
 def first_launch_on_each_input_set():

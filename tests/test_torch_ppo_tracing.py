@@ -9,8 +9,9 @@ import torch
 
 from gymca_torch import rng
 from gymca_torch.agents.args import Args, EnvArgs, ExperimentArgs, PPOArgs
+from gymca_torch.agents import ppo
 from gymca_torch.agents.ppo import EpisodeStatistics, PPOTrainer
-from gymca_torch.envs.advanced import AdvancedForestFireBulldozerEnv
+from gymca_torch.envs.advanced import TERRAIN_KEYS, AdvancedForestFireBulldozerEnv
 from gymca_torch.utils import metrics
 
 N, SIZE, STEPS, MINIBATCHES, EPOCHS = 2, 32, 8, 2, 2
@@ -152,3 +153,123 @@ def test_the_policy_graphs_signature_reads_what_the_capture_depends_on(trainer, 
     finally:
         cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, matmul.allow_tf32 = saved
     assert trainer._policy_signature(torch.zeros(N, SIZE, SIZE, 3), None) == base
+
+
+def test_the_rollout_on_the_cpu_runs_the_eager_env_half_and_captures_no_graph(trainer):
+    carry = start(trainer)
+    collected = trainer.samples_collected
+    metrics.enable()
+    trainer.rollout(*carry)
+    snap = metrics.snapshot()
+    metrics.disable()
+    assert trainer.samples_collected == collected + N * STEPS
+    assert (trainer.step_graph_captures, trainer.step_graph_replays) == (0, 0)
+    assert trainer._step_graphs == {}
+    assert {p: snap[p][0] for p in ("rollout", "rollout/policy", "rollout/stateless_step",
+                                    "rollout/conditional_reset")} == {
+        "rollout": 1, "rollout/policy": STEPS, "rollout/stateless_step": STEPS,
+        "rollout/conditional_reset": STEPS}
+    assert {"rollout/stateless_step/ca", "rollout/stateless_step/observe",
+            "rollout/conditional_reset/fresh_state", "rollout/conditional_reset/observe",
+            "rollout/policy/rng"} <= set(snap)
+    assert not any("step_graph" in p or "policy_graph" in p for p in snap)
+
+
+class EagerGraph:
+    """Stands in for ``ppo._Graph`` on the CPU with a CUDA graph's buffers:
+    static copies of the arguments, the warm-ups and the "capture" run on
+    them, and a replay that runs the body on them again."""
+
+    WARMUP = ppo._Graph.WARMUP
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, ppo._tree_map(torch.clone, args)
+        for _ in range(self.WARMUP):
+            fn(*self.args)
+        self.out = fn(*self.args)
+
+    def replay(self):
+        self.fn(*self.args)
+
+
+@pytest.mark.parametrize("flags", [
+    {}, {"position_features": True, "shape_tree_coef": 20.0, "shape_dist_coef": 2.0,
+         "shape_douse_coef": 20.0, "kickstart_coef": 1.0}])
+def test_the_step_graphs_buffers_give_the_eager_rollout(trainer, monkeypatch, flags):
+    """``_rollout_graphed`` on a stand-in graph (``EagerGraph``) equals the
+    eager rollout leaf for leaf, twice from one carry, and leaves that
+    carry as it was; it hands back the caller's own terrain and shared
+    context, and a new tensor for every other leaf of its carry."""
+    env = trainer.env
+    exp = {k: v for k, v in flags.items() if k == "position_features"}
+    args = Args(ppo=PPOArgs(num_minibatches=MINIBATCHES, update_epochs=EPOCHS,
+                            **{k: v for k, v in flags.items() if k not in exp}),
+                env=EnvArgs(num_envs=N, size=SIZE),
+                exp=ExperimentArgs(num_ppo_steps=STEPS, seed=7, **exp))
+    t = PPOTrainer(env, args, rng.key(7, device="cpu"), device="cpu")
+    carry = start(t)
+    kept = [x.clone() for x in leaves(carry)]
+    want = t.rollout(*carry)
+    monkeypatch.setattr(ppo, "_Graph", EagerGraph)
+    got = [t._rollout_graphed(carry[0], carry[1:5], carry[5]) for _ in range(2)]
+    assert (t.step_graph_captures, t.step_graph_replays) == (1, 2 * STEPS)
+    for g in got:
+        assert len(leaves(g)) == len(leaves(want)) > 50
+        for a, b in zip(leaves(g), leaves(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(carry), kept))
+    context = carry[2][1]
+    passed = {id(v) for v in context["shared_context"].values()} | {
+        id(context["per_env_context"][k]) for k in TERRAIN_KEYS}
+    for (path, a), (_, b) in zip(ppo._leaves(got[0][0][1:5]), ppo._leaves(carry[1:5])):
+        assert (a is b) == (id(b) in passed), path
+
+
+@pytest.mark.parametrize("change", ["leaf_shape", "leaf_dtype", "steps", "shaping", "kickstart",
+                                    "features", "ca_route", "cudnn_tf32", "cudnn_deterministic",
+                                    "cudnn_benchmark", "matmul_tf32"])
+def test_the_step_graphs_signature_reads_what_the_capture_depends_on(trainer, change):
+    """Each input or setting that changes what a step capture holds gives
+    another signature, so a caller that changes it gets a new graph."""
+    def signature(carry):
+        action = torch.zeros(N, trainer.n_action_heads, dtype=torch.int32)
+        lp, value = torch.zeros(N, trainer.n_action_heads), torch.zeros(N)
+        return trainer._step_signature((torch.zeros(1, dtype=torch.int64), action, lp, value,
+                                        carry[1:5]))
+
+    carry = start(trainer)
+    base = signature(carry)
+    assert signature(start(trainer)) == base
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, matmul.allow_tf32,
+             trainer.args.exp.num_ppo_steps, trainer._shaping, trainer.args.ppo.shape_tree_coef,
+             trainer._kickstart, trainer.position_features, trainer.env.use_fused_ca)
+    try:
+        if change == "leaf_shape":
+            carry = carry[:2] + ((carry[2][0][:1], carry[2][1]),) + carry[3:]
+        elif change == "leaf_dtype":
+            carry = carry[:3] + (carry[3].to(torch.uint8),) + carry[4:]
+        elif change == "steps":
+            trainer.args.exp.num_ppo_steps = STEPS + 1
+        elif change == "shaping":
+            trainer._shaping, trainer.args.ppo.shape_tree_coef = True, 20.0
+        elif change == "kickstart":
+            trainer._kickstart = True
+        elif change == "features":
+            trainer.position_features = True
+        elif change == "ca_route":
+            trainer.env.use_fused_ca = not trainer.env.use_fused_ca
+        elif change == "cudnn_tf32":
+            cudnn.allow_tf32 = not cudnn.allow_tf32
+        elif change == "cudnn_deterministic":
+            cudnn.deterministic = not cudnn.deterministic
+        elif change == "cudnn_benchmark":
+            cudnn.benchmark = not cudnn.benchmark
+        else:
+            matmul.allow_tf32 = not matmul.allow_tf32
+        assert signature(carry) != base
+    finally:
+        (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark, matmul.allow_tf32,
+         trainer.args.exp.num_ppo_steps, trainer._shaping, trainer.args.ppo.shape_tree_coef,
+         trainer._kickstart, trainer.position_features, trainer.env.use_fused_ca) = saved
+    assert signature(start(trainer)) == base
